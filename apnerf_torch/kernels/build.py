@@ -1,0 +1,91 @@
+"""Build the CUDA sources in ``apnerf_torch/csrc`` into one shared library.
+
+At first use, ``nvcc`` compiles every ``*.cu`` for ``sm_90a`` into a plain
+C-interface library under ``apnerf_torch/_build/`` (git-ignored), named by
+a hash of the sources and flags, and ``ctypes`` loads it. A failed build
+raises with nvcc's output. Only the CUDA toolkit is needed.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo"]
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: argument types; each returns cudaGetLastError() as int
+SIGNATURES = {
+    # q, p, M, P, k, out_d2, out_idx, stream
+    "knn_brute_launch": [P, P, I, I, I, P, P, P],
+    # q, M, pts_t, T, pts_per_tile, tile_list, tile_cnt, r2, out_cnt, stream
+    "knn_count_launch": [P, I, P, I, I, P, P, F, P, P],
+    # q, M, pts_t, T, pts_per_tile, tile_list, tile_cnt, r2, k,
+    # out_d2, out_idx, stream
+    "knn_radius_launch": [P, I, P, I, I, P, P, F, I, P, P, P],
+    # rel, feat, w, w1, b1, wl, bl, M, K, F, n_pe, P_pad, n_layers, out,
+    # stream
+    "featmlp_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, P, P],
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        path = Path(cand) / "bin" / "nvcc"
+        if cand and path.exists():
+            return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libapnerf_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless it exists; returns its path."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *sources]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / "build.log").write_text(
+        " ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built at first use, with argtypes declared."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib

@@ -1,0 +1,816 @@
+"""TemporalPoints stage-2 point-model render (port of
+``apnerf/models/temporal_points.py``, forward only).
+
+One code path and one index space: the warped cloud is always Morton-sorted
+into the k-NN tables of ``kernels.knn_cells`` (pad rows included), and the
+kernel-or-plain choice happens inside each kernel wrapper by device. The
+static budgets (``M_act``, ``G2``, ``M_pass``, ``S_pass``), their 1024- and
+128-multiple roundings and the depth-major drop order are the JAX
+package's: they decide which samples survive. Every JAX ``argsort`` is a
+stable sort here too.
+
+Not ported yet (raise ``NotImplementedError``): ``fused_agg``,
+``render_pcd_direct``, the non-fused ``sample_rays_compact`` /
+``compact_active`` pair (``APNERF_FUSED_SAMPLER=0`` or budgets that the
+coarse stride does not divide), and the XLA ``feat_net`` formulation
+(``agg_bf16=False`` or ``featmlp_kernel=False``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as Fn
+from torch import nn
+
+from ..kernels.featmlp import featmlp_agg, pack_weights
+from ..kernels.knn_cells import build_point_tables
+from ..ops import encoding
+from ..ops.activation import raw2alpha
+from ..ops.knn import knn, knn_count, morton_codes
+from ..ops.marching import alpha2weights, composite
+from ..ops.nn import MLP
+from ..ops.rays import ray_aabb, vector_norm
+from . import point_warper
+from .tineuvox import RGBNet
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class TemporalPointsConfig:
+    """Field names and defaults of the JAX config, so a checkpoint's
+    ``model_kwargs`` constructs it (see the JAX class for each field)."""
+    n_points: int
+    n_joints: int
+    feat_dim: int
+    neighbours: int = 8
+    timebase_pe: int = 8
+    posbase_pe: int = 10
+    viewbase_pe: int = 4
+    stepsize: float = 0.5
+    voxel_size: float = 0.0
+    voxel_size_ratio: float = 1.0
+    act_shift: float = 0.0
+    fast_color_thres: float = 1e-4
+    no_view_dir: bool = False
+    frozen_view_dir: bool = False
+    over_parameterized_rot: bool = True
+    avg_procrustes: bool = False
+    re_init_mlps: bool = False
+    feat_depth: int = 4
+    pose_embedding_dim: int = 0
+    eps: float = 1e-6
+    sample_budget: int = 192
+    max_steps: int = 512
+    active_fraction: float = 0.30
+    pass_fraction: float = 0.30
+    occ_res: int = 64
+    occ_dilations: int = 2
+    knn_pts_tile: int = 128
+    knn_rt: int = 24
+    group_pass_fraction: float = 0.55
+    agg_bf16: bool = True
+    coarse_stride: int = 16
+    knn_share: int = 1
+    knn_cand: int = 12
+    fused_agg: bool = False
+    featmlp_kernel: bool = True
+
+    @property
+    def t_dim(self):
+        return 1 + 2 * self.timebase_pe
+
+    @property
+    def pts_ch(self):
+        return 3 + 3 * self.posbase_pe * 2
+
+    @property
+    def views_ch(self):
+        return 0 if self.no_view_dir else 3 + 3 * self.viewbase_pe * 2
+
+    @property
+    def warp_cfg(self):
+        return point_warper.WarpConfig(
+            n_joints=self.n_joints, t_dim=self.t_dim,
+            over_parameterized_rot=self.over_parameterized_rot)
+
+
+class TemporalPoints(nn.Module):
+    """Stage-2 parameters: per-point arrays and the networks. Names match
+    the JAX parameter pytree (``utils.checkpoint`` maps between them).
+
+    ``timenet_dims``: the backbone's time network, carried in checkpoints
+    but not used by the render."""
+
+    def __init__(self, cfg: TemporalPointsConfig,
+                 timenet_dims: Sequence[int], device=None):
+        super().__init__()
+        self.cfg = cfg
+        P, J, F = cfg.n_points, cfg.n_joints, cfg.feat_dim
+
+        def param(*shape):
+            return nn.Parameter(torch.zeros(shape, dtype=F32, device=device))
+
+        self.weights = param(P, J)
+        self.joints = param(J, 3)
+        self.theta_weight = param(1)
+        self.gammas = param(P)
+        self.canonical_feat = param(P, F)
+        self.canonical_rgbs = param(P, 3)
+        self.canonical_alpha = param(P)
+        self.direct_eps = param(P)
+        self.forward_warp = point_warper.PointWarper(cfg.warp_cfg, device)
+        fin = F + cfg.pts_ch + cfg.pose_embedding_dim
+        self.feat_net = MLP([fin] + [F] * cfg.feat_depth, "leaky_relu",
+                            "leaky_relu", device=device)
+        self.rgbnet = RGBNet(F, cfg.views_ch, device)
+        self.densitynet = MLP([F, 1], device=device)
+        self.timenet = MLP(list(timenet_dims), device=device)
+        self.pose_embedding_net = None
+        if cfg.pose_embedding_dim > 0:
+            pin = J * cfg.pts_ch
+            dims = ([pin, pin // 2] + [pin // 2] * (cfg.feat_depth - 2)
+                    + [cfg.pose_embedding_dim])
+            self.pose_embedding_net = MLP(dims, "leaky_relu", "leaky_relu",
+                                          device=device)
+
+    def forward(self, state, rays_o, rays_d, viewdirs, **kwargs):
+        return forward(self, state, rays_o, rays_d, viewdirs, **kwargs)
+
+
+def _point_segment_distance(p, a, b, eps=1e-12) -> np.ndarray:
+    """Distance (float64) from points p [N, 3] to each segment
+    (a[m], b[m]) -> [M, N] (``apnerf.kinematics.skeletonizer``)."""
+    p, a, b = (np.asarray(x, np.float64) for x in (p, a, b))
+    s = b - a
+    t = np.clip(((p[None] - a[:, None]) * s[:, None]).sum(-1)
+                / np.maximum((s * s).sum(-1)[:, None], eps), 0.0, 1.0)
+    closest = a[:, None, :] + t[..., None] * s[:, None, :]
+    return np.linalg.norm(p[None] - closest, axis=-1)
+
+
+def init_params(cfg: TemporalPointsConfig, canonical_pcd, joints, bones,
+                canonical_feat, canonical_alpha, canonical_rgbs,
+                timenet_dims: Sequence[int], generator: torch.Generator,
+                noise_gamma: float = 1e-2, device=None) -> TemporalPoints:
+    """A stage-2 model with fresh networks drawn from ``generator``.
+
+    Skinning weights from point-to-bone distances as the JAX package's
+    ``init_params``; the heads are new (the JAX version copies them from
+    the trained backbone)."""
+    P = cfg.n_points
+    a = np.array([joints[b[0]] for b in bones], np.float64)
+    b = np.array([joints[b[1]] for b in bones], np.float64)
+    d = _point_segment_distance(canonical_pcd, a, b)              # [J-1, P]
+    w = (1.0 / (0.5 * np.e ** d + cfg.eps)).T
+    w = np.concatenate([np.zeros((P, 1)), w], axis=-1)
+    model = TemporalPoints(cfg, timenet_dims)
+    with torch.no_grad():
+        model.weights.copy_(torch.as_tensor(w, dtype=F32))
+        model.joints.copy_(torch.as_tensor(np.asarray(joints), dtype=F32))
+        model.theta_weight.fill_(0.1)
+        model.gammas.copy_(1.0 + noise_gamma * torch.randn(
+            P, generator=generator))
+        model.canonical_feat.copy_(torch.as_tensor(np.asarray(canonical_feat),
+                                                   dtype=F32))
+        model.canonical_rgbs.copy_(torch.as_tensor(np.asarray(canonical_rgbs),
+                                                   dtype=F32))
+        model.canonical_alpha.copy_(torch.as_tensor(
+            np.asarray(canonical_alpha), dtype=F32))
+        model.direct_eps.fill_(0.05)
+    for net in (model.forward_warp.transform_net, model.feat_net,
+                model.rgbnet, model.densitynet, model.timenet,
+                model.pose_embedding_net):
+        if net is not None:
+            net.reset_parameters_(generator)
+    return model.to(device)
+
+
+@torch.no_grad()
+def init_state(cfg: TemporalPointsConfig, canonical_pcd, joints, bones,
+               skeleton_pcd, xyz_min, xyz_max, frozen_view_dir=None,
+               device=None) -> Dict[str, Any]:
+    """Non-learned buffers: canonical k-NN (kernel K1), kinematic tree,
+    merge state, bboxes."""
+    def t(x, dtype=F32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    pcd = t(canonical_pcd)
+    _, nn_i = knn(pcd, pcd, k=cfg.neighbours)
+    nn_i = nn_i.long()
+    nn_dist = torch.sqrt(((pcd[:, None, :] - pcd[nn_i]) ** 2).sum(-1)
+                         + cfg.eps)
+    tree = point_warper.build_tree(np.asarray(joints), bones)
+    J = cfg.n_joints
+    bone_pairs = np.asarray(bones).reshape(-1)
+    state = {
+        "canonical_pcd": pcd,
+        "skeleton_pcd": t(skeleton_pcd),
+        "original_joints": t(joints),
+        "nn_i": nn_i,
+        "nn_distance": nn_dist,
+        "mean_min_distance": nn_dist[:, 1].mean(),
+        "bone_arap_idx": t(bone_pairs, torch.int64),
+        "tree": {k: t(v, torch.int64) for k, v in tree.items()},
+        "rot_mask": torch.zeros(J, dtype=torch.bool, device=device),
+        "sibling_mask": torch.arange(J, device=device),
+        "merge_mat": torch.eye(J, dtype=F32, device=device),
+        "xyz_min": t(xyz_min),
+        "xyz_max": t(xyz_max),
+        "frozen_view_dir": (None if frozen_view_dir is None
+                            else t(frozen_view_dir)),
+        "bones": np.asarray(bones),
+    }
+    og = state["original_joints"][state["bone_arap_idx"]]
+    state["og_joint_distance"] = og[0::2] - og[1::2]
+    return state
+
+
+def get_weights(model: TemporalPoints, state) -> torch.Tensor:
+    """Tempered softmax skinning weights times the merge matrix."""
+    theta = torch.clamp(model.theta_weight, min=model.cfg.eps)
+    w = torch.softmax(model.weights / theta, dim=-1)
+    return w @ state["merge_mat"]
+
+
+def warp(model: TemporalPoints, state, t=None, rot_params=None):
+    """Forward-warp the canonical cloud at time ``t`` or by explicit
+    ``rot_params`` [J, 4]."""
+    cfg = model.cfg
+    dev = state["canonical_pcd"].device
+    t_embed = None
+    if t is not None:
+        tt = torch.as_tensor(t, dtype=F32, device=dev).reshape(1)
+        t_embed = encoding.poc_fre(
+            tt, encoding.poc_freqs(cfg.timebase_pe, dev)).reshape(-1)
+    weights = get_weights(model, state)
+    out = point_warper.forward(
+        model.forward_warp, cfg.warp_cfg, state["tree"],
+        state["canonical_pcd"], weights, model.joints, t_embed=t_embed,
+        rot_params=rot_params, rot_mask=state["rot_mask"],
+        sibling_mask=state["sibling_mask"],
+        avg_procrustes=cfg.avg_procrustes)
+    out["lbs_weights"] = weights
+    return out
+
+
+def _compact_per_ray(valid: torch.Tensor, budget: int) -> torch.Tensor:
+    """Source step of the b-th valid slot of each ray, b < budget
+    (== S when the ray has fewer) -> int64 [R, budget]."""
+    c = torch.cumsum(valid.to(torch.int32), dim=1)
+    thresh = torch.arange(1, budget + 1, dtype=torch.int32,
+                          device=valid.device)
+    return (c[:, :, None] < thresh[None, None, :]).sum(1)
+
+
+OCC_RES = 64
+
+
+def build_occupancy(t_hat_pcd, bbox_min, bbox_max, radius: float,
+                    occ_res: int = OCC_RES, margin: float = 0.0,
+                    n_dil: int = 2):
+    """Binary occupancy grid of the cloud, dilated ``n_dil`` cells, with a
+    cell no smaller than (sqrt(radius) + margin) / n_dil (conservative
+    lookups; see the JAX docstring) -> (grid bool [D, D, D], cell)."""
+    extent = bbox_max - bbox_min
+    D = torch.sqrt(torch.tensor(radius, dtype=F32)) + margin
+    cell = torch.maximum(extent.amax() / occ_res,
+                         (D / n_dil * 1.0001).to(extent.device))
+    idx = torch.clamp((t_hat_pcd - bbox_min) / cell, 0, occ_res - 1).to(
+        torch.int64)
+    grid = torch.zeros((occ_res,) * 3, dtype=F32, device=t_hat_pcd.device)
+    grid[idx[:, 0], idx[:, 1], idx[:, 2]] = 1.0
+    grid = grid[None, None]
+    for _ in range(n_dil):
+        grid = Fn.max_pool3d(grid, 3, stride=1, padding=1)
+    return grid[0, 0] > 0, cell
+
+
+def occupancy_lookup(occ, cell, bbox_min, pts):
+    dims = occ.shape[0]
+    idx = torch.floor((pts - bbox_min) / cell).to(torch.int64)
+    ok = ((idx >= 0) & (idx < dims)).all(-1)
+    idx = idx.clamp(0, dims - 1)
+    return ok & occ[idx[..., 0], idx[..., 1], idx[..., 2]]
+
+
+def prepare_occupancy(cfg: TemporalPointsConfig, state, t_hat_pcd,
+                      query_radius: float, calc_min_max: bool = True):
+    """Per-frame bbox, occupancy grid and Morton k-NN tables of the warped
+    cloud, shared by every ray chunk of the frame."""
+    if calc_min_max:
+        bb_min = t_hat_pcd.amin(0) - query_radius
+        bb_max = t_hat_pcd.amax(0) + query_radius
+    else:
+        bb_min, bb_max = state["xyz_min"], state["xyz_max"]
+    margin = (cfg.coarse_stride - 1) / 2.0 * cfg.stepsize * cfg.voxel_size
+    occ, occ_cell = build_occupancy(t_hat_pcd, bb_min, bb_max, query_radius,
+                                    occ_res=cfg.occ_res, margin=margin,
+                                    n_dil=cfg.occ_dilations)
+    return {"bb_min": bb_min, "bb_max": bb_max, "occ": occ,
+            "occ_cell": occ_cell, "occ_margin": margin,
+            "knn_tables": build_point_tables(
+                t_hat_pcd, pts_per_tile=cfg.knn_pts_tile)}
+
+
+def _budget_compact(keep_mask: torch.Tensor, values: torch.Tensor,
+                    budget: int, fill: int) -> torch.Tensor:
+    """The first ``budget`` entries of ``values`` whose ``keep_mask`` is
+    set, in order; empty slots hold ``fill`` (the JAX cumsum + scatter
+    with a drop row)."""
+    pos = torch.cumsum(keep_mask.to(torch.int64), 0) - 1
+    keep = keep_mask & (pos < budget)
+    dest = torch.where(keep, pos, torch.full_like(pos, budget))
+    out = torch.full((budget + 1,), fill, dtype=torch.int64,
+                     device=values.device)
+    out[dest] = values
+    return out[:budget]
+
+
+def _sample_groups_fused(cfg: TemporalPointsConfig, rays_o, rays_d, near,
+                         far, bb_min, bb_max, occ, occ_cell, occ_margin,
+                         tables, query_radius, M_act):
+    """Group sampling + compaction with positions only for the selected
+    groups (JAX ``_sample_groups_fused``). Returns (q [M_slots, 3],
+    src [M_slots], act_ok [M_slots], step_id [R, B], act_demand)."""
+    dev = rays_o.device
+    stepdist = cfg.stepsize * cfg.voxel_size
+    t_min, t_max = ray_aabb(rays_o, rays_d, bb_min, bb_max, near, far)
+    n_steps = torch.clamp(torch.ceil((t_max - t_min) / stepdist), min=1.0)
+    start = rays_o + rays_d * t_min[:, None]
+    unit_d = rays_d / vector_norm(rays_d)
+    S, R, B, c = cfg.max_steps, rays_o.shape[0], cfg.sample_budget, \
+        cfg.coarse_stride
+    Sc = (S + c - 1) // c
+    Bc = B // c
+    ar_c = torch.arange(c, device=dev)
+
+    # ---- per-ray group budgeting: occupancy test at the group centre, or
+    # over every member when the grid's margin does not cover the group
+    jc = torch.arange(Sc, dtype=F32, device=dev)
+    half = (c - 1) / 2.0 * stepdist
+    if half <= occ_margin * (1 + 1e-6) + 1e-12:
+        tc = (jc * c + (c - 1) / 2.0) * stepdist
+        pc = start[:, None, :] + unit_d[:, None, :] * tc[None, :, None]
+        idx = torch.floor((pc - bb_min) / occ_cell).to(torch.int64).clamp(
+            0, occ.shape[0] - 1)
+        hit = occ[idx[..., 0], idx[..., 1], idx[..., 2]]
+    else:
+        tm = (jc[:, None] * c + ar_c.to(F32)[None, :]) * stepdist
+        pm = (start[:, None, None, :]
+              + unit_d[:, None, None, :] * tm[None, :, :, None])
+        hit = occupancy_lookup(occ, occ_cell, bb_min, pm).any(-1)
+    hit = hit & (jc[None, :] * c < n_steps[:, None])
+    src_c = _compact_per_ray(hit, Bc)                     # [R, Bc], Sc empty
+    src_steps = (src_c[:, :, None] * c + ar_c).reshape(R, B)
+    step_id = torch.clamp(src_steps.to(F32), max=S - 1)
+
+    # ---- global group compaction, depth-major drop order
+    M_grp = R * Bc
+    G_act = M_act // c
+    gvalid = src_c < Sc
+    act_demand = gvalid.sum() * c
+    gid = torch.arange(M_grp, device=dev)
+    gsrc = _budget_compact(gvalid.t().reshape(M_grp),
+                           (gid % R) * Bc + gid // R, G_act, M_grp)
+
+    ray = torch.clamp(gsrc // Bc, max=R - 1)
+    slot = torch.clamp(gsrc % Bc, max=Bc - 1)
+    t_g = (src_c[ray, slot].to(F32) * c + (c - 1) / 2.0) * stepdist
+    grep = start[ray] + unit_d[ray] * t_g[:, None]
+    grep = torch.where((gsrc < M_grp)[:, None], grep,
+                       torch.full_like(grep, 1e9))
+    gperm = torch.argsort(morton_codes(grep, bb_min, bb_max), stable=True)
+    gsrc = gsrc[gperm]
+
+    if cfg.group_pass_fraction > 0:
+        # hierarchical prefilter on the group midpoints (kernel K2)
+        thr = float((np.sqrt(query_radius) + half) ** 2)
+        gkeep = knn_count(grep[gperm], tables, thr) >= cfg.neighbours
+        G2 = int(G_act * cfg.group_pass_fraction)
+        G2 = min(max(128, (G2 + 127) // 128 * 128), G_act)
+        if G2 < G_act:
+            gsrc = _budget_compact(gkeep, gsrc, G2, M_grp)
+        else:
+            gsrc = torch.where(gkeep, gsrc, torch.full_like(gsrc, M_grp))
+
+    # ---- member expansion for the selected groups only
+    M_slots = gsrc.shape[0] * c
+    real = gsrc < M_grp
+    ray_of_g = torch.clamp(gsrc // Bc, max=R - 1)
+    slot_of_g = torch.clamp(gsrc % Bc, max=Bc - 1)
+    steps = src_c[ray_of_g, slot_of_g][:, None] * c + ar_c[None, :]
+    step_f = steps.to(F32)
+    pos_m = (start[ray_of_g][:, None, :]
+             + unit_d[ray_of_g][:, None, :] * (step_f[..., None] * stepdist))
+    in_bbox = ((pos_m >= bb_min) & (pos_m <= bb_max)).all(-1)
+    valid_m = (real[:, None] & in_bbox & (steps < S)
+               & (step_f < n_steps[ray_of_g][:, None]))
+    q = torch.where(valid_m[..., None], pos_m,
+                    torch.full_like(pos_m, 1e9)).reshape(M_slots, 3)
+    M_full = R * B
+    base = torch.where(real, ray_of_g * B + slot_of_g * c,
+                       torch.full_like(ray_of_g, M_full))
+    src = torch.clamp((base[:, None] + ar_c[None, :]).reshape(M_slots),
+                      max=M_full)
+    act_ok = q[:, 0] < 1e8
+    return q, src, act_ok, step_id, act_demand
+
+
+def _featnet_h(featnet, rel_canon, feat_k, w):
+    """h = sum_k w[..., k] * feat_net(PE(rel_canon), feat_k, pose)
+    through kernel K4; ``featnet`` is the frame's packed bf16 feat_net."""
+    K = rel_canon.shape[-2]
+    F = feat_k.shape[-1]
+    lead = rel_canon.shape[:-2]
+    h = featmlp_agg(rel_canon.reshape(-1, K, 3), feat_k.reshape(-1, K, F),
+                    w.reshape(-1, K), featnet)
+    return h.reshape(*lead, F)
+
+
+class PointSources:
+    """What every ray chunk of a frame gathers from, built once per frame
+    by ``prepare_frame``: the per-point arrays permuted into the
+    Morton-sorted k-NN space (pad rows are zeros) and feat_net packed for
+    kernel K4 (bf16, biases included, as the model runs it; the frame's
+    pose embedding folded into the layer-1 bias)."""
+
+    def __init__(self, model: TemporalPoints, tables, t_hat_pcd, inv_rot,
+                 lbs_weights, pose_embedding):
+        self.perm = tables["perm"]
+        self.Pp = tables["pts_sorted"].shape[0]
+        self.geo = torch.cat([self.permute(t_hat_pcd),
+                              self.permute(inv_rot.reshape(-1, 9))], -1)
+        self.feat = self.permute(model.canonical_feat.to(torch.bfloat16))
+        self.lbs = None if lbs_weights is None else self.permute(lbs_weights)
+        self.featnet = pack_weights(
+            [(l.weight.to(torch.bfloat16), l.bias.to(torch.bfloat16))
+             for l in model.feat_net.layers], model.cfg.feat_dim,
+            model.cfg.posbase_pe, pose_embedding)
+
+    def permute(self, arr):
+        out = arr[self.perm]
+        pad = self.Pp - out.shape[0]
+        if pad:
+            out = torch.cat([out, out.new_zeros((pad, *out.shape[1:]))], 0)
+        return out
+
+
+def _views_emb(cfg, state, viewdirs, ray_of):
+    """View-direction encoding per slot (None without view dirs)."""
+    if cfg.no_view_dir:
+        return None
+    freqs = encoding.poc_freqs(cfg.viewbase_pe, viewdirs.device)
+    if state["frozen_view_dir"] is not None:
+        ve = encoding.poc_fre(state["frozen_view_dir"], freqs)
+        return ve.expand(*ray_of.shape, ve.shape[-1])
+    return encoding.poc_fre(viewdirs, freqs)[ray_of]
+
+
+def _heads(model: TemporalPoints, h, views_emb):
+    cfg = model.cfg
+    density = model.densitynet(h)[..., 0]
+    alpha = raw2alpha(density, cfg.act_shift,
+                      cfg.stepsize * cfg.voxel_size_ratio)
+    return alpha, torch.sigmoid(model.rgbnet(h, views_emb))
+
+
+def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
+                               q, src, act_ok, R, B, M_full, M_act,
+                               query_radius, tables, act_demand,
+                               render_weights=False):
+    """Subgroup-shared k-NN aggregation (``knn_share > 1``): ``knn_cand``
+    candidates per subgroup of ``share`` consecutive samples (kernel K3 on
+    the subgroup midpoints), pass-compaction on the midpoint's kth
+    distance at the enlarged radius, then each member's exact top-K of the
+    candidates. Error is one-sided vs the exact path (JAX docstring)."""
+    cfg = model.cfg
+    K = cfg.neighbours
+    kc = int(cfg.knn_cand)
+    share = int(cfg.knn_share)
+    if kc < K:
+        raise ValueError(f"knn_cand {kc} < neighbours {K}")
+    dev = q.device
+    G_sub = q.shape[0] // share
+    span = (share - 1) * cfg.stepsize * cfg.voxel_size
+    r2_sel = float((np.sqrt(query_radius) + span / 2.0) ** 2)
+
+    qg = q.reshape(G_sub, share, 3)
+    ok_g = act_ok.reshape(G_sub, share)[..., None]
+    lo = torch.where(ok_g, qg, torch.full_like(qg, 1e9)).amin(1)
+    hi = torch.where(ok_g, qg, torch.full_like(qg, -1e9)).amax(1)
+    reps = torch.where(ok_g.any(1), 0.5 * (lo + hi), torch.full_like(lo, 2e9))
+    d2r, idx = knn(reps, None, kc, radius2=r2_sel, point_tables=tables)
+
+    # ---- subgroup pass-compaction (budget as pass_fraction)
+    sub_ok = d2r[:, K - 1] <= r2_sel
+    pass_demand = sub_ok.sum() * share
+    S_pass = max(128, int(M_act * cfg.pass_fraction) // share)
+    S_pass = min(((S_pass + 127) // 128) * 128, G_sub)
+    src_g = src.reshape(G_sub, share)
+    act_g = act_ok.reshape(G_sub, share)
+    if S_pass < G_sub:
+        psrc = _budget_compact(sub_ok, torch.arange(G_sub, device=dev),
+                               S_pass, G_sub)
+        pass_ok_sub = psrc < G_sub
+        psl = torch.clamp(psrc, max=G_sub - 1)
+        q_sub = qg[psl]
+        src_sub = torch.where(pass_ok_sub[:, None], src_g[psl],
+                              torch.full_like(src_g[psl], M_full))
+        idx, d2r = idx[psl], d2r[psl]
+        ok_sub = act_g[psl] & pass_ok_sub[:, None]
+    else:
+        S_pass = G_sub
+        q_sub = qg
+        src_sub = torch.where(sub_ok[:, None], src_g,
+                              torch.full_like(src_g, M_full))
+        ok_sub = act_g & sub_ok[:, None]
+    # slots beyond the midpoint's in-radius count carry (+inf, 0): mask
+    # them out of every member's ranking
+    cand_valid = d2r <= r2_sel                           # [S_pass, kc]
+
+    views_emb = _views_emb(cfg, state, viewdirs,
+                           torch.clamp(src_sub // B, max=R - 1))
+    idxl = idx.long()
+    geo = srcs.geo[idxl]                                 # [S, kc, 12]
+    feat_k = srcs.feat[idxl]                             # [S, kc, F]
+    rel_p = q_sub[:, :, None, :] - geo[:, None, :, :3]   # [S, share, kc, 3]
+    to_nn = (rel_p ** 2).sum(-1)                         # [S, share, kc]
+    inf = torch.full_like(to_nn, float("inf"))
+    to_nn = torch.where(cand_valid[:, None, :], to_nn, inf)
+    rot = geo[..., 3:]                                   # [S, kc, 9]
+    if kc == K:
+        # every valid candidate is a neighbour: no ranking needed (invalid
+        # slots carry inf, zero weight, and reject through kd2)
+        kd2 = to_nn.amax(-1)
+        w = torch.where(torch.isfinite(to_nn), 1.0 / (to_nn + cfg.eps),
+                        torch.zeros_like(to_nn))
+    else:
+        # exact per-member top-K of the kc candidates; ties by position
+        ar = torch.arange(kc, device=dev)
+        less = (to_nn[..., :, None] > to_nn[..., None, :]) | (
+            (to_nn[..., :, None] == to_nn[..., None, :])
+            & (ar[:, None] > ar[None, :]))
+        rank = less.sum(-1)                              # a permutation
+        top = rank < K
+        kd2 = torch.where(top, to_nn, -inf).amax(-1)
+        w = torch.where(top, 1.0 / (to_nn + cfg.eps), torch.zeros_like(to_nn))
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-30)
+    if kc > K:
+        # gather the K winners in rank order (the JAX one-hot contractions
+        # at HIGHEST precision select the same values)
+        win = torch.argsort(rank, dim=-1)[..., :K]       # [S, share, K]
+        w_sel = torch.gather(w, -1, win)
+        rel_sel = torch.gather(rel_p, 2, win[..., None].expand(-1, -1, -1, 3))
+        S_, sh = win.shape[:2]
+        rot_sel = torch.gather(rot[:, None].expand(S_, sh, kc, 9), 2,
+                               win[..., None].expand(-1, -1, -1, 9))
+        F = feat_k.shape[-1]
+        feat_sel = torch.gather(feat_k[:, None].expand(S_, sh, kc, F), 2,
+                                win[..., None].expand(-1, -1, -1, F))
+        rel_canon = torch.einsum("mskab,mskb->mska",
+                                 rot_sel.reshape(*rot_sel.shape[:3], 3, 3),
+                                 rel_sel)
+    else:
+        w_sel = w
+        feat_sel = feat_k[:, None].expand(-1, share, -1, -1)
+        rel_canon = torch.einsum("mkab,mskb->mska",
+                                 rot.reshape(rot.shape[0], kc, 3, 3), rel_p)
+    h = _featnet_h(srcs.featnet, rel_canon, feat_sel, w_sel)
+    alpha, rgb = _heads(model, h, views_emb)
+
+    # ---- scatter back to [R, B], one row per subgroup (a subgroup's slots
+    # are consecutive and share-aligned in the flat R*B space)
+    sample_ok = ok_sub & (kd2 <= query_radius)           # [S_pass, share]
+    n_rows = M_full // share
+    dst_row = torch.where(src_sub[:, 0] < M_full, src_sub[:, 0] // share,
+                          torch.full_like(src_sub[:, 0], n_rows))
+
+    def scatter(x):
+        x = torch.where(sample_ok.reshape(*sample_ok.shape,
+                                          *(1,) * (x.dim() - 2)),
+                        x, torch.zeros_like(x))
+        out = x.new_zeros((n_rows + 1, *x.shape[1:]))
+        out[dst_row] = x
+        return out[:n_rows].reshape(R, B, *x.shape[2:])
+
+    out = {
+        "alpha": scatter(alpha),
+        "rgb": scatter(rgb),
+        "valid": scatter(sample_ok),
+        "budget_audit": torch.stack([
+            act_demand, torch.tensor(M_act, device=dev), pass_demand,
+            torch.tensor(S_pass * share, device=dev)]),
+    }
+    if render_weights and srcs.lbs is not None:
+        lw = srcs.lbs[idxl]                              # [S, kc, J]
+        out["lbs_w"] = scatter((lw[:, None] * w[..., None]).sum(2))
+    return out
+
+
+def _aggregate_exact(model: TemporalPoints, state, srcs, viewdirs, q, src,
+                     act_ok, R, B, M_full, M_act, query_radius, tables,
+                     act_demand, render_weights=False):
+    """Exact two-phase k-NN aggregation: count within the radius (K2;
+    ``count >= K`` is the reference's kth-neighbour cutoff), compact the
+    survivors to the pass budget, select K (K3), aggregate (K4)."""
+    cfg = model.cfg
+    K = cfg.neighbours
+    dev = q.device
+    M_slots = q.shape[0]
+    cnt = knn_count(q, tables, float(query_radius))
+    nn_ok = (cnt >= K) & act_ok
+
+    M_pass = int(M_act * cfg.pass_fraction)
+    M_pass = min(max(1024, ((M_pass + 1023) // 1024) * 1024), M_slots)
+    if M_pass < M_slots:
+        psrc = _budget_compact(nn_ok, torch.arange(M_slots, device=dev),
+                               M_pass, M_slots)
+        pass_ok = psrc < M_slots
+        psl = torch.clamp(psrc, max=M_slots - 1)
+        q = q[psl]
+        src = torch.where(pass_ok, src[psl], torch.full_like(psrc, M_full))
+        n_slots = M_pass
+    else:
+        pass_ok = nn_ok
+        src = torch.where(nn_ok, src, torch.full_like(src, M_full))
+        n_slots = M_slots
+
+    _, idx = knn(q, None, K, radius2=float(query_radius), point_tables=tables)
+    views_emb = _views_emb(cfg, state, viewdirs,
+                           torch.clamp(src // B, max=R - 1))
+    idxl = idx.long()
+    geo = srcs.geo[idxl]                                 # [n, K, 12]
+    rel_p = q[:, None, :] - geo[..., :3]
+    to_nn = (rel_p ** 2).sum(-1)
+    w = 1.0 / (to_nn + cfg.eps)
+    w = w / w.sum(-1, keepdim=True)
+    rel_canon = torch.einsum("mkab,mkb->mka",
+                             geo[..., 3:].reshape(n_slots, K, 3, 3), rel_p)
+    h = _featnet_h(srcs.featnet, rel_canon, srcs.feat[idxl], w)
+    alpha, rgb = _heads(model, h, views_emb)
+
+    # exact kth distance of the selected set decides the radius cutoff
+    dst = torch.where(pass_ok & (to_nn.amax(-1) <= query_radius), src,
+                      torch.full_like(src, M_full))
+
+    def scatter(x):
+        out = x.new_zeros((M_full + 1, *x.shape[1:]))
+        out[dst] = x
+        return out[:M_full].reshape(R, B, *x.shape[1:])
+
+    out = {
+        "alpha": scatter(alpha),
+        "rgb": scatter(rgb),
+        "valid": scatter(torch.ones_like(pass_ok)),
+        "budget_audit": torch.stack([
+            act_demand, torch.tensor(M_act, device=dev), nn_ok.sum(),
+            torch.tensor(n_slots, device=dev)]),
+    }
+    if render_weights and srcs.lbs is not None:
+        out["lbs_w"] = scatter((srcs.lbs[idxl] * w[..., None]).sum(1))
+    return out
+
+
+def aggregate_pts(model: TemporalPoints, state, frame, rays_o, rays_d,
+                  viewdirs, near, far, query_radius, render_pcd_direct=False,
+                  render_weights=False):
+    """k-NN feature aggregation along rays, from a ``prepare_frame``
+    output -> per-sample [R, B(, .)] arrays, the valid mask, ``step_id``
+    and ``knn_path`` ("exact" or "shared": which aggregation ran)."""
+    cfg = model.cfg
+    if render_pcd_direct:
+        raise NotImplementedError("render_pcd_direct is not ported yet")
+    if cfg.fused_agg:
+        raise NotImplementedError("fused_agg is not ported yet")
+    if not (cfg.agg_bf16 and cfg.featmlp_kernel):
+        raise NotImplementedError(
+            "only the bf16 featmlp aggregation is ported")
+    occ_info = frame["occ_info"]
+    R = rays_o.shape[0]
+    B = cfg.sample_budget
+    M_full = R * B
+    M_act = int(M_full * cfg.active_fraction)
+    M_act = min(max(1024, ((M_act + 1023) // 1024) * 1024), M_full)
+    c = cfg.coarse_stride
+    if (B % c != 0 or M_act % c != 0
+            or os.environ.get("APNERF_FUSED_SAMPLER", "1") != "1"):
+        raise NotImplementedError(
+            "only the fused group sampler is ported (needs coarse_stride to "
+            "divide sample_budget and the active budget)")
+    tables = occ_info["knn_tables"]
+    q, src, act_ok, step_id, act_demand = _sample_groups_fused(
+        cfg, rays_o, rays_d, near, far, occ_info["bb_min"],
+        occ_info["bb_max"], occ_info["occ"], occ_info["occ_cell"],
+        occ_info["occ_margin"], tables, query_radius, M_act)
+    share = int(cfg.knn_share)
+    # the JAX package falls back to exact k-NN when share does not divide
+    # the coarse stride; so does the port
+    shared = share > 1 and c % share == 0
+    agg = _aggregate_subgroup_shared if shared else _aggregate_exact
+    out = agg(model, state, frame["point_sources"], viewdirs, q, src, act_ok,
+              R, B, M_full, M_act, query_radius, tables, act_demand,
+              render_weights=render_weights)
+    out["step_id"] = step_id
+    out["knn_path"] = "shared" if shared else "exact"
+    return out
+
+
+def _inv3x3(m: torch.Tensor) -> torch.Tensor:
+    """Closed-form adjugate/det 3x3 inverse plus one Newton-Schulz step."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    A = e * i - f * h
+    B = c * h - b * i
+    C = b * f - c * e
+    D = f * g - d * i
+    E = a * i - c * g
+    F = c * d - a * f
+    G = d * h - e * g
+    H = b * g - a * h
+    I = a * e - b * d
+    det = a * A + b * D + c * G
+    inv = torch.stack([torch.stack([A, B, C], -1),
+                       torch.stack([D, E, F], -1),
+                       torch.stack([G, H, I], -1)], -2)
+    x = inv / det[..., None, None]
+    eye2 = 2.0 * torch.eye(3, dtype=m.dtype, device=m.device)
+    return x @ (eye2 - m @ x)
+
+
+@torch.inference_mode()
+def prepare_frame(model: TemporalPoints, state, t=None, rot_params=None,
+                  query_radius: float = 0.01, calc_min_max: bool = True):
+    """Per-frame state shared by all ray chunks: warp, inverse frames,
+    pose embedding, occupancy grid, k-NN tables and the point sources the
+    chunks gather from (with the packed feat_net)."""
+    cfg = model.cfg
+    wout = warp(model, state, t=t, rot_params=rot_params)
+    Rm = wout["frames"][:, :3, :3]
+    wout["inv_rot"] = (Rm.transpose(-1, -2) if cfg.avg_procrustes
+                       else _inv3x3(Rm))
+    wout["pose_embedding"] = None
+    if cfg.pose_embedding_dim > 0:
+        delta = model.joints - wout["joints_rel"]
+        emb = encoding.poc_fre(delta, encoding.poc_freqs(cfg.posbase_pe,
+                                                         delta.device))
+        wout["pose_embedding"] = model.pose_embedding_net(emb.reshape(1, -1))
+    wout["occ_info"] = prepare_occupancy(cfg, state, wout["xyz"],
+                                         query_radius, calc_min_max)
+    wout["point_sources"] = PointSources(
+        model, wout["occ_info"]["knn_tables"], wout["xyz"], wout["inv_rot"],
+        wout["lbs_weights"], wout["pose_embedding"])
+    return wout
+
+
+@torch.inference_mode()
+def forward(model: TemporalPoints, state, rays_o, rays_d, viewdirs, t=None,
+            rot_params=None, near=0.0, far=1e9, bg=1.0,
+            query_radius: float = 0.01, render_depth: bool = False,
+            render_weights: bool = False, render_pcd_direct: bool = False,
+            calc_min_max: bool = True, frame=None) -> Dict[str, Any]:
+    """warp -> aggregate -> composite for one chunk of rays. ``frame``: a
+    precomputed ``prepare_frame`` output shared across chunks."""
+    cfg = model.cfg
+    wout = frame if frame is not None else prepare_frame(
+        model, state, t=t, rot_params=rot_params, query_radius=query_radius,
+        calc_min_max=calc_min_max)
+    agg = aggregate_pts(model, state, wout, rays_o, rays_d, viewdirs, near,
+                        far, query_radius,
+                        render_pcd_direct=render_pcd_direct,
+                        render_weights=render_weights)
+    valid = agg["valid"]
+    alpha = agg["alpha"]
+    thres = cfg.fast_color_thres
+    if thres > 0:
+        valid = valid & (alpha > thres)
+    weights, alphainv_last = alpha2weights(alpha, valid)
+    if thres > 0:
+        weights = torch.where(weights > thres, weights,
+                              torch.zeros_like(weights))
+    out = {
+        "t_hat_pcd": wout["xyz"],
+        "rgb_marched": composite(weights, agg["rgb"], bg=bg,
+                                 alphainv_last=alphainv_last),
+        "alphainv_last": alphainv_last,
+        "weights_per_sample": weights,
+        "thetas": wout["thetas"],
+        "global_t": wout["global_t"],
+        "joints_rel": wout["joints_rel"],
+        "joints_warped": wout["joints_warped"],
+        "lbs_weights": wout["lbs_weights"],
+        "budget_audit": agg["budget_audit"],
+        "knn_path": agg["knn_path"],
+    }
+    if render_depth:
+        out["depth"] = composite(weights, agg["step_id"])
+    if render_weights and "lbs_w" in agg:
+        out["lbs_w_per_sample"] = agg["lbs_w"]
+        out["weights_for_render"] = weights
+        out["alphainv_for_render"] = alphainv_last
+    return out

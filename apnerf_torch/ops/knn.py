@@ -1,0 +1,57 @@
+"""Morton codes and the k-NN entry points (port of ``apnerf/ops/knn.py``).
+
+The port always works in the Morton-sorted, padded point space of
+``kernels.knn_cells.build_point_tables`` for radius queries; the kernel or
+its plain version is chosen inside each wrapper by the tensors' device.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+
+def morton_codes(points: torch.Tensor, lo: Optional[torch.Tensor] = None,
+                 hi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """30-bit Morton codes (10 bits per axis) as int64.
+
+    ``lo``/``hi`` fix the normalisation box; default is the point bbox.
+    Equal to the JAX package's uint32 codes."""
+    if lo is None:
+        lo = points.amin(0)
+    if hi is None:
+        hi = points.amax(0)
+    u = ((points - lo) / torch.clamp(hi - lo, min=1e-9)).clamp(0.0, 1.0)
+    g = torch.clamp((u * 1024.0).to(torch.int64), max=1023)
+
+    def spread(x):
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    return spread(g[:, 0]) | (spread(g[:, 1]) << 1) | (spread(g[:, 2]) << 2)
+
+
+def knn(queries: torch.Tensor, points: Optional[torch.Tensor], k: int,
+        radius2: Optional[float] = None,
+        point_tables: Optional[Dict[str, torch.Tensor]] = None):
+    """k nearest points per query -> (d2 [M, k] ascending, idx [M, k]).
+
+    ``radius2=None``: exact brute force over ``points``, indices in the
+    original point order (kernel K1). Otherwise radius-bounded over
+    ``point_tables`` (kernel K3): only points with d2 <= radius2, indices
+    in the Morton-sorted space, empty slots (+inf, 0)."""
+    if radius2 is None:
+        from ..kernels.knn_brute import knn_brute
+        return knn_brute(queries, points, k)
+    from ..kernels.knn_cells import knn_radius
+    return knn_radius(queries, point_tables, k, float(radius2))
+
+
+def knn_count(queries: torch.Tensor, point_tables: Dict[str, torch.Tensor],
+              radius2: float) -> torch.Tensor:
+    """Per-query count of points with d2 <= radius2 (kernel K2) -> [M]."""
+    from ..kernels.knn_cells import knn_count as _count
+    return _count(queries, point_tables, float(radius2))

@@ -1,0 +1,105 @@
+"""Checkpoints cross between the packages: a JAX-written
+``temporalpoints_last.pkl`` loads and renders in the port, the port's
+writer round-trips and the JAX loader reads it, and the port loads one
+without importing jax."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import jax
+
+from apnerf_torch.models import temporal_points as ttp
+from apnerf_torch.utils import checkpoint as tck
+from test_torch_temporal_points import (BASE, jax_state, port_model,  # noqa
+                                        port_render, scene)
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+class _TineuvoxCfg:
+    def get_kwargs(self):
+        return {"note": "test"}
+
+
+def _jax_save(path, s):
+    from apnerf import cli
+    from apnerf.models import temporal_points as jtp
+    cfg = jtp.TemporalPointsConfig(**BASE)
+    cli.save_temporalpoints(str(path), s["params"], cfg, jax_state(cfg, s),
+                            None, _TineuvoxCfg())
+
+
+def test_jax_checkpoint_renders_in_port(tmp_path, scene):
+    path = tmp_path / "temporalpoints_last.pkl"
+    _jax_save(path, scene)
+    model, state = tck.load_temporalpoints(str(path))
+    assert model.cfg == ttp.TemporalPointsConfig(**BASE)
+    ref_model, ref_state = port_model({}, scene)
+    for k, v in ref_model.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
+    assert torch.equal(state["nn_i"], ref_state["nn_i"])
+    got = port_render(model, state)
+    want = port_render(ref_model, ref_state)
+    assert torch.equal(got["rgb_marched"], want["rgb_marched"])
+    assert torch.equal(got["depth"], want["depth"])
+
+
+def test_port_writer_round_trips(tmp_path, scene):
+    from apnerf import cli
+    model, state = port_model({}, scene)
+    path = tmp_path / "port.pkl"
+    tck.save_temporalpoints(str(path), model, state)
+    back, bstate = tck.load_temporalpoints(str(path))
+    assert back.cfg == model.cfg
+    for k, v in model.state_dict().items():
+        assert torch.equal(back.state_dict()[k], v), k
+    for k in ("canonical_pcd", "nn_i", "xyz_min", "original_joints"):
+        assert torch.equal(bstate[k], state[k]), k
+    # the JAX package reads the port's file: same pytree, same config
+    jparams, jcfg, _ = cli.load_temporalpoints(str(path))
+    assert jcfg == type(jcfg)(**BASE)
+    want = jax.tree_util.tree_leaves_with_path(scene["tree"])
+    got = dict(jax.tree_util.tree_leaves_with_path(
+        jax.tree_util.tree_map(np.asarray, jparams)))
+    assert len(got) == len(want)
+    for kp, leaf in want:
+        np.testing.assert_array_equal(got[kp], leaf)
+
+
+def test_port_imports_no_jax(tmp_path, scene):
+    """Every apnerf_torch module, then init_params and load_temporalpoints,
+    in a fresh interpreter: neither jax nor the JAX package (apnerf) ever
+    enters sys.modules (conftest imports jax here)."""
+    model, state = port_model({}, scene)
+    path = tmp_path / "port.pkl"
+    tck.save_temporalpoints(str(path), model, state)
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import numpy as np, torch\n"
+        "import apnerf_torch\n"
+        "for m in pkgutil.walk_packages(apnerf_torch.__path__, "
+        "'apnerf_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from apnerf_torch.models import temporal_points as tp\n"
+        "from apnerf_torch.utils.checkpoint import load_temporalpoints\n"
+        f"model, state = load_temporalpoints({str(path)!r})\n"
+        "assert state['nn_i'].shape == (2000, 8)\n"
+        "tp.init_params(model.cfg, state['canonical_pcd'].numpy(),\n"
+        "               state['original_joints'].numpy(), state['bones'],\n"
+        "               model.canonical_feat.detach().numpy(),\n"
+        "               np.zeros(2000), np.zeros((2000, 3)), [17, 32, 16],\n"
+        "               torch.Generator().manual_seed(0))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'apnerf'))\n"
+        "assert not bad, bad\n"
+        "print('no jax')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "no jax" in res.stdout

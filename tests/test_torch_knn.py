@@ -1,0 +1,179 @@
+"""Plain PyTorch versions of kernels K1-K3 (apnerf_torch.kernels) against
+the JAX package's Pallas k-NN kernels, run in interpret mode on the CPU as
+tests/test_kernels_interpret.py runs them. The CUDA kernels implement the
+same contracts; chip_smoke.py holds them against these plain versions on
+the card. ``rt=4`` only shortens the Pallas kernels' unrolled rounds, for
+faster interpret-mode compiles."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from apnerf_torch.kernels import knn_brute as tkb
+from apnerf_torch.kernels import knn_cells as tkc
+
+
+def _cloud(rng, M, P, spread=0.1, scale=1.0):
+    p = (rng.normal(size=(P, 3)) * scale).astype(np.float32)
+    q = (p[rng.integers(0, P, M)]
+         + rng.normal(size=(M, 3)).astype(np.float32) * spread)
+    return q, p
+
+
+def _d2_f32(q, p):
+    """fp32 squared distances formed as the kernels form them."""
+    dx = q[:, None, 0] - p[None, :, 0]
+    dy = q[:, None, 1] - p[None, :, 1]
+    dz = q[:, None, 2] - p[None, :, 2]
+    return (dx * dx + dy * dy) + dz * dz
+
+
+def test_knn_brute_plain_vs_pallas():
+    """K1: sorted d2 rows and neighbour sets as knn_pallas_sorted
+    (rtol 1e-4, atol 1e-6, the interpret-mode test's bound)."""
+    from apnerf.kernels.knn_pallas import knn_pallas_sorted
+    rng = np.random.default_rng(0)
+    q, p = _cloud(rng, 512, 1500, spread=1.0)
+    jd, ji = knn_pallas_sorted(jnp.asarray(q), jnp.asarray(p), k=8)
+    td, ti = tkb.knn_brute(torch.tensor(q), torch.tensor(p), 8)
+    assert ti.dtype == torch.int32 and td.shape == (512, 8)
+    np.testing.assert_allclose(td.numpy(), np.sort(np.asarray(jd), 1),
+                               rtol=1e-4, atol=1e-6)
+    full = _d2_f32(q, p)
+    np.testing.assert_array_equal(
+        td.numpy(), np.take_along_axis(full, ti.numpy().astype(np.int64), 1))
+    # the same neighbour sets wherever the kth and (k+1)th differ
+    srt = np.sort(full, 1)
+    clear = srt[:, 8] > srt[:, 7] * (1 + 1e-5) + 1e-7
+    got = np.sort(ti.numpy(), 1)[clear]
+    want = np.sort(np.asarray(ji), 1)[clear]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_build_point_tables_equal():
+    from apnerf.kernels.knn_cells_pallas import build_point_tables as jbt
+    p = np.random.default_rng(1).normal(size=(1500, 3)).astype(np.float32)
+    jt = jbt(jnp.asarray(p))
+    tt = tkc.build_point_tables(torch.tensor(p))
+    for key in ("perm", "pts_t", "pts_sorted", "t_lo", "t_hi", "p_lo",
+                "p_hi"):
+        np.testing.assert_array_equal(tt[key].numpy(), np.asarray(jt[key]),
+                                      err_msg=key)
+
+
+def test_knn_count_plain_vs_pallas():
+    """K2: equal counts, except queries with a point within 2^-20
+    relative of the radius (XLA:CPU may contract the Pallas d2 to FMA)."""
+    from apnerf.kernels.knn_cells_pallas import knn_count_pallas
+    rng = np.random.default_rng(3)
+    q, p = _cloud(rng, 700, 1500)
+    r2 = 0.05
+    want = np.asarray(knn_count_pallas(jnp.asarray(q), jnp.asarray(p),
+                                       radius2=r2, rt=4))
+    tabs = tkc.build_point_tables(torch.tensor(p))
+    got = tkc.knn_count(torch.tensor(q), tabs, r2).numpy()
+    d64 = ((q[:, None, :].astype(np.float64) - p[None]) ** 2).sum(-1)
+    edge = (np.abs(d64 - r2) <= r2 * 2.0 ** -20).any(1)
+    assert (~edge).sum() > 600
+    np.testing.assert_array_equal(got[~edge], want[~edge])
+
+
+@pytest.mark.parametrize("k", [8, 12])
+def test_knn_radius_plain_vs_pallas(k):
+    """K3 with the same tables, indices in the Morton-sorted space: for
+    queries whose kth neighbour is in radius, the same index sets up to
+    2^-10-relative ties (the TPU kernel's key truncation). The port's d2
+    are exact fp32 and only in-radius points are returned."""
+    from apnerf.kernels.knn_cells_pallas import (build_point_tables,
+                                                 knn_radius_pallas)
+    rng = np.random.default_rng(4 + k)
+    q, p = _cloud(rng, 512, 1500, spread=0.03, scale=0.3)
+    r2 = 0.01 if k == 8 else 0.015
+    jtab = build_point_tables(jnp.asarray(p))
+    _, ji = knn_radius_pallas(jnp.asarray(q), jnp.asarray(p), k=k,
+                              radius2=r2, tables=jtab, remap_indices=False,
+                              rt=4)
+    tabs = tkc.build_point_tables(torch.tensor(p))
+    td, ti = tkc.knn_radius(torch.tensor(q), tabs, k, r2)
+    ps = tabs["pts_sorted"].numpy()
+    full = _d2_f32(q, ps)
+    srt = np.sort(full, 1)
+    ok = srt[:, k - 1] <= r2
+    assert ok.sum() > 100 and (~ok).sum() > 0
+    ti_np = ti.numpy().astype(np.int64)
+    # exact contract: ascending exact d2, in-radius only, (+inf, 0) beyond
+    inr = (full <= r2).sum(1)
+    slot = np.arange(k)[None]
+    filled = slot < inr[:, None]
+    np.testing.assert_array_equal(td.numpy()[filled],
+                                  np.take_along_axis(full, ti_np, 1)[filled])
+    np.testing.assert_array_equal(td.numpy()[filled],
+                                  srt[:, :k][filled])
+    assert np.isinf(td.numpy()[~filled]).all() and (ti_np[~filled] == 0).all()
+    # set equality with the Pallas kernel where no 2^-10 tie decides
+    ji_np = np.asarray(ji).astype(np.int64)
+    np.testing.assert_allclose(
+        np.sort(np.take_along_axis(full, ji_np, 1)[ok], 1), srt[ok, :k],
+        rtol=2 ** -10, atol=1e-7)
+    clear = ok & (srt[:, k] > srt[:, k - 1] * (1 + 2 ** -9))
+    np.testing.assert_array_equal(np.sort(ti_np[clear], 1),
+                                  np.sort(ji_np[clear], 1))
+
+
+def test_candidate_tiles_prune_exactly():
+    """The tile lists the CUDA kernels walk (one QB-query block each) hold
+    every in-radius point: walking only the listed tiles in list order, as
+    csrc/knn_cells.cu does, reproduces the plain count and top-k exactly,
+    sentinel queries at 1e9 and a ragged last block included."""
+    rng = np.random.default_rng(9)
+    q, p = _cloud(rng, 600, 4000, spread=0.03, scale=0.3)
+    q[::37] = 1e9
+    r2, k = 0.01, 8
+    tabs = tkc.build_point_tables(torch.tensor(p))
+    # Morton-ordered queries, as the render hands them over
+    order = torch.argsort(_morton(q, tabs), stable=True)
+    qt = torch.tensor(q)[order].contiguous()
+    lst, cnt = tkc.candidate_tiles(qt, tabs, r2)
+    pts_t = tabs["pts_t"].numpy()
+    T, _, pts = pts_t.shape
+    assert lst.shape == (-(-600 // tkc.QB), T)
+    assert 0 < cnt.min() < T
+    want_c = tkc.knn_count_plain(qt, tabs["pts_sorted"], r2).numpy()
+    want_d, want_i = tkc.knn_radius_plain(qt, tabs["pts_sorted"], k, r2)
+    qn = qt.numpy()
+    for m in range(qn.shape[0]):
+        b = m // tkc.QB
+        tiles = lst[b, :cnt[b]].numpy()
+        assert (np.diff(tiles) > 0).all()
+        cand = pts_t[tiles].transpose(0, 2, 1).reshape(-1, 3)
+        ids = (tiles[:, None] * pts + np.arange(pts)[None]).reshape(-1)
+        d = _d2_f32(qn[m:m + 1], cand)[0]
+        assert (d <= r2).sum() == want_c[m]
+        sel = d <= r2
+        o = np.argsort(d[sel], kind="stable")[:k]
+        n = len(o)
+        np.testing.assert_array_equal(d[sel][o], want_d[m, :n].numpy())
+        np.testing.assert_array_equal(ids[sel][o], want_i[m, :n].numpy())
+
+
+def _morton(q, tabs):
+    from apnerf_torch.ops.knn import morton_codes
+    return morton_codes(torch.tensor(q), tabs["p_lo"], tabs["p_hi"])
+
+
+def test_wrappers_dispatch_by_device():
+    """CPU tensors take the plain versions; a device without a kernel
+    raises instead of falling back."""
+    rng = np.random.default_rng(10)
+    q, p = _cloud(rng, 64, 300)
+    tq, tp = torch.tensor(q), torch.tensor(p)
+    d, i = tkb.knn_brute(tq, tp, 4)
+    pd, pi = tkb.knn_brute_plain(tq, tp, 4)
+    assert torch.equal(d, pd) and torch.equal(i, pi)
+    with pytest.raises(ValueError):
+        tkb.knn_brute(tq.to("meta"), tp.to("meta"), 4)
+    tabs = tkc.build_point_tables(tp)
+    with pytest.raises(ValueError):
+        tkc.knn_count(tq.to("meta"), {k: v.to("meta")
+                                      for k, v in tabs.items()}, 0.05)
