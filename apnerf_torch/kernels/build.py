@@ -2,8 +2,9 @@
 
 At first use, ``nvcc`` compiles every ``*.cu`` for ``sm_90a`` into a plain
 C-interface library under ``apnerf_torch/_build/`` (git-ignored), named by
-a hash of the sources and flags, and ``ctypes`` loads it. A failed build
-raises with nvcc's output. Only the CUDA toolkit is needed.
+a hash of the sources and flags, and ``ctypes`` loads it. The sources
+compile in parallel, one ``nvcc`` each, and are then linked together. A
+failed build raises with nvcc's output. Only the CUDA toolkit is needed.
 """
 from __future__ import annotations
 
@@ -17,9 +18,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-lineinfo"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v", "-lineinfo"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types; each returns cudaGetLastError() as int
@@ -34,6 +35,8 @@ SIGNATURES = {
     # rel, feat, w, w1, b1, wl, bl, M, K, F, n_pe, P_pad, n_layers, out,
     # stream
     "featmlp_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, P, P],
+    # idx, upd, M, C, n_rows, transposed, offs, out, stream
+    "scatter_launch": [P, P, I, I, I, I, P, P, P],
 }
 
 _lib = None
@@ -67,13 +70,33 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *sources]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp.with_name(f"{src.stem}.{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+               str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    if not failed:
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (BUILD_DIR / "build.log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, so)
     return so
 

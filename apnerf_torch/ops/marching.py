@@ -1,7 +1,8 @@
-"""Per-ray transmittance and compositing, dense layout (forward of
-``apnerf/ops/marching.py``). The CUDA reference's early exit at
-``T < 1e-3`` is a mask: no weight after the stop step, and
-``alphainv_last`` freezes at the stop value."""
+"""Per-ray transmittance, compositing and the distortion loss, dense
+layout (port of ``apnerf/ops/marching.py``). The CUDA reference's early
+exit at ``T < 1e-3`` is a mask: no weight after the stop step, and
+``alphainv_last`` freezes at the stop value. Gradients come from autograd
+of the same masked expressions, as in the JAX package."""
 from __future__ import annotations
 
 from typing import Optional
@@ -41,3 +42,19 @@ def composite(weights: torch.Tensor, values: torch.Tensor, bg=None,
     if bg is not None:
         out = out + alphainv_last[..., None] * bg
     return out
+
+
+def distortion_loss(weights: torch.Tensor, s: torch.Tensor, interval,
+                    valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mip-NeRF-360 distortion loss, dense per-ray form: per ray
+    ``sum_ij w_i w_j |s_i - s_j| + interval / 3 * sum_i w_i^2`` through the
+    O(S) prefix-sum identity (samples sorted along S), summed over rays
+    and divided by their number."""
+    if valid is not None:
+        weights = torch.where(valid, weights, torch.zeros_like(weights))
+    w_cum = torch.cumsum(weights, -1) - weights
+    ws = weights * s
+    ws_cum = torch.cumsum(ws, -1) - ws
+    loss_bi = 2.0 * (ws * w_cum - weights * ws_cum)
+    loss_uni = (1.0 / 3.0) * interval * weights ** 2
+    return (loss_bi.sum() + loss_uni.sum()) / weights.shape[0]

@@ -55,10 +55,18 @@ class MLP(nn.Module):
             init_linear_(layer, generator)
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``dtype`` (e.g. bf16): run the layers with the weights cast to
+        it (the parameters stay as they are); ``x`` must be of that type."""
         act = _ACTIVATIONS[self.activation]
         for i, layer in enumerate(self.layers):
-            x = layer(x)
+            if dtype is None:
+                x = layer(x)
+            else:
+                x = F.linear(x, layer.weight.to(dtype),
+                             None if layer.bias is None
+                             else layer.bias.to(dtype))
             if i < len(self.layers) - 1:
                 x = act(x)
             elif self.final_activation is not None:

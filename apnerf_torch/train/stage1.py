@@ -1,0 +1,328 @@
+"""Stage-1 trainer: TiNeuVox backbone reconstruction (port of
+``apnerf/train/stage1.py``).
+
+Frustum bbox, progressive grid upscaling with an optimizer rebuild, the
+mask-cache ray index, photometric + background-entropy + mask-BCE +
+per-point-rgb + distortion losses, the TV gradient added to the feature
+gradient after the backward, masked Adam with per-step lr decay, the
+density-derived occupancy grid with a static active-sample budget, and
+mid-stage checkpoints with resume.
+
+``cfg`` is duck-typed as the JAX package's config: ``.train_config``,
+``.model_and_render`` and ``.data``, each a mapping with attribute access
+and ``.get``. Ray microbatching (``ray_microbatch`` > 1, or the JAX auto
+rule above 4096 rays) and the multi-device ``mesh`` are not ported and
+raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..data import rays as raydata
+from ..models import tineuvox
+from ..ops import compaction, marching
+from ..ops.rays import get_rays_of_a_view
+from ..utils import checkpoint as ckpt
+from .masked_adam import MaskedAdam
+
+
+def compute_bbox_by_cam_frustrm(HW, Ks, poses, i_train, img_to_cam, near,
+                                far, ndc=False, inverse_y=False, flip_x=False,
+                                flip_y=False):
+    """Scene bbox = union of the training camera frustums (numpy)."""
+    xyz_min = np.full(3, np.inf)
+    xyz_max = np.full(3, -np.inf)
+    for idx in i_train:
+        H, W = HW[idx]
+        cam = img_to_cam[idx]
+        ro, rd, vd = get_rays_of_a_view(
+            int(H), int(W), Ks[cam], poses[cam], ndc=ndc, inverse_y=inverse_y,
+            flip_x=flip_x, flip_y=flip_y)
+        d = rd if ndc else vd
+        pts = torch.stack([ro + d * near, ro + d * far]).numpy()
+        xyz_min = np.minimum(xyz_min, pts.reshape(-1, 3).min(0))
+        xyz_max = np.maximum(xyz_max, pts.reshape(-1, 3).max(0))
+    return xyz_min, xyz_max
+
+
+def active_budget(n_rand: int, n_steps: int, occ_frac: float):
+    """(budget, demanded): the static active-sample budget for ``n_rand``
+    rays of ``n_steps`` steps at ``occ_frac``, as the JAX package rounds
+    it: up to a power of two (at least 4096) up to 2^19, above that up to
+    a multiple of 2^19."""
+    demanded = int(n_rand * n_steps * occ_frac)
+    chunk = 1 << 19
+    if demanded > chunk:
+        return -(-demanded // chunk) * chunk, demanded
+    return max(4096, 1 << max(demanded - 1, 1).bit_length()), demanded
+
+
+def make_loss_fn(model: tineuvox.TiNeuVox, cfg_train, Ks, poses, H, W,
+                 near, far, bg, inverse_y=False, flip_x=False, flip_y=False,
+                 active_budget=None):
+    """``loss_fn(batch, occ) -> (loss, mse)``: render the batch's rays
+    through ``model`` and sum the weighted stage-1 losses."""
+    stepsize = float(cfg_train["_stepsize"])
+    w_main = float(cfg_train["weight_main"])
+    w_entropy = float(cfg_train.get("weight_entropy_last", 0.0))
+    w_mask = float(cfg_train.get("weight_mask_loss", 0.0))
+    w_rgbper = float(cfg_train.get("weight_rgbper", 0.0))
+    w_dist = float(cfg_train.get("weight_distortion", 0.0))
+
+    def loss_fn(batch, occ):
+        ro, rd, vd = raydata.pixels_to_rays(
+            Ks, poses, batch["cam"], batch["pix"], H, W,
+            inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y)
+        res = tineuvox.forward(model, ro, rd, vd, batch["time"][:, None],
+                               near, far, stepsize, bg,
+                               model.cfg.max_steps(stepsize), occ_grid=occ,
+                               active_budget=active_budget)
+        target = batch["rgb"]
+        mse = torch.mean((res["rgb_marched"] - target) ** 2)
+        loss = w_main * mse
+        if w_entropy > 0 or w_mask > 0:
+            pout = torch.clamp(res["alphainv_last"], 1e-6, 1 - 1e-6)
+        if w_entropy > 0:
+            ent = -(pout * torch.log(pout)
+                    + (1 - pout) * torch.log(1 - pout)).mean()
+            loss = loss + w_entropy * ent
+        if w_mask > 0:
+            tgt_inv = 1.0 - batch["mask"]
+            bce = -(tgt_inv * torch.log(pout)
+                    + (1 - tgt_inv) * torch.log(1 - pout)).mean()
+            loss = loss + w_mask * bce
+        if w_rgbper > 0:
+            rgbper = ((res["raw_rgb"] - target[:, None, :]) ** 2).sum(-1)
+            rgbper = (rgbper * res["weights"].detach()).sum()
+            loss = loss + w_rgbper * rgbper / target.shape[0]
+        if w_dist > 0:
+            loss = loss + w_dist * marching.distortion_loss(
+                res["weights"], res["s"], 1.0 / res["n_max"])
+        return loss, mse
+
+    return loss_fn
+
+
+def make_train_step(model: tineuvox.TiNeuVox, cfg_train,
+                    optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
+                    inverse_y=False, flip_x=False, flip_y=False,
+                    active_budget=None):
+    """``step(batch, tv_on, occ=None, tv_dense=True) -> (loss, mse)``:
+    loss, backward, the TV gradient added to the feature gradient after
+    the backward (the reference's ``feature_total_variation_add_grad``),
+    then one masked-Adam update of ``model`` in place."""
+    loss_fn = make_loss_fn(model, cfg_train, Ks, poses, H, W, near, far, bg,
+                           inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y,
+                           active_budget=active_budget)
+    w_tv = float(cfg_train.get("weight_tv_feature", 0.0))
+
+    def step(batch, tv_on, occ=None, tv_dense=True):
+        model.zero_grad(set_to_none=True)
+        loss, mse = loss_fn(batch, occ)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        if w_tv > 0 and tv_on:
+            g = grads["feature"]
+            g = torch.zeros_like(model.feature) if g is None else g
+            grads["feature"] = g + tineuvox.feature_tv_grad(
+                model, w_tv / batch["rgb"].shape[0], g, tv_dense)
+        optimizer.update(grads)
+        return loss.detach(), mse.detach()
+
+    return step
+
+
+def refresh_occupancy(model: tineuvox.TiNeuVox, stepsize: float):
+    """The occupancy grid: alpha > max(fast_color_thres, 1e-6) at any of 4
+    times over the grid's nodes, dilated twice, plus once more for the
+    coarse-group centre test when ``occ_group`` > 1."""
+    cfg = model.cfg
+    grid_xyz = tineuvox.grid_xyz_coords(cfg, 1.0)
+    acc = None
+    for t in (0.0, 1.0 / 3, 2.0 / 3, 1.0):
+        a = tineuvox.eval_alpha_volume(model, grid_xyz, t, stepsize)
+        acc = a if acc is None else np.maximum(acc, a)
+    occ = torch.as_tensor(acc > max(cfg.fast_color_thres, 1e-6),
+                          device=model.feature.device)
+    n_dilate = 3 if int(cfg.occ_group) > 1 else 2
+    for _ in range(n_dilate):
+        occ = compaction.build_occupancy_grid(occ)
+    return occ
+
+
+def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
+                             log_every=1000, step_to_half=100000,
+                             callback=None, ckpt_path=None, ckpt_every=0,
+                             mesh=None, device=None):
+    """Run stage-1 training end to end; returns (model, model_cfg, stats).
+
+    ``device``: default CUDA when available. On CUDA the deformation and
+    feature MLPs run in bf16 (``mlp_bf16``, as the JAX package on its
+    accelerator); on the CPU everything is fp32. With ``ckpt_path`` and
+    ``ckpt_every``: periodic ``fine_progress.pkl`` checkpoints (model, Adam
+    state, step) and an automatic resume from one. ``stats`` holds
+    ``psnr``, ``loss`` and ``seconds`` (wall time since the start) at each
+    logged step."""
+    if mesh is not None:
+        raise NotImplementedError("multi-device stage-1 training (mesh) is "
+                                  "not ported")
+    # the JAX package splits a batch into ray microbatches when asked
+    # (ray_microbatch > 1) or, by default (0), above 4096 rays
+    n_micro = int(cfg.train_config.get("ray_microbatch", 0))
+    n_rand = int(cfg.train_config["N_rand"])
+    if n_micro > 1 or (n_micro == 0 and n_rand > 4096):
+        raise NotImplementedError("ray microbatching is not ported: use "
+                                  "N_rand <= 4096 and ray_microbatch 0 or 1")
+    dev = torch.device(device if device is not None else
+                       ("cuda" if torch.cuda.is_available() else "cpu"))
+    cfg_model = cfg.model_and_render
+    cfg_train = dict(cfg.train_config)
+    n_iters = n_iters or int(cfg_train["N_iters"])
+    xyz_min, xyz_max = compute_bbox_by_cam_frustrm(
+        data_dict["HW"], data_dict["Ks"], data_dict["poses"],
+        data_dict["i_train"], data_dict["img_to_cam"], data_dict["near"],
+        data_dict["far"], ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y,
+        flip_x=cfg.data.flip_x, flip_y=cfg.data.flip_y)
+    wbs = float(cfg_model.world_bound_scale)
+    if abs(wbs - 1.0) > 1e-9:
+        shift = (xyz_max - xyz_min) * (wbs - 1) / 2
+        xyz_min, xyz_max = xyz_min - shift, xyz_max + shift
+
+    pg_scale = list(cfg_train.get("pg_scale", []))
+    num_voxels = int(cfg_model.num_voxels)
+    if pg_scale:
+        num_voxels = int(num_voxels / (2 ** len(pg_scale)))
+    model_cfg = tineuvox.TiNeuVoxConfig(
+        xyz_min=tuple(xyz_min), xyz_max=tuple(xyz_max),
+        num_voxels=num_voxels,
+        num_voxels_base=int(cfg_model.num_voxels_base),
+        voxel_dim=int(cfg_model.voxel_dim),
+        defor_depth=int(cfg_model.defor_depth),
+        net_width=int(cfg_model.net_width),
+        alpha_init=float(cfg_model.alpha_init),
+        fast_color_thres=float(cfg_model.fast_color_thres),
+        no_view_dir=bool(cfg_model.no_view_dir),
+        add_cam=bool(cfg.data.get("add_cam", False)),
+        mlp_bf16=bool(cfg_model.get("mlp_bf16", True)) and dev.type == "cuda")
+    model = tineuvox.init_model(model_cfg, torch.Generator().manual_seed(seed),
+                                dev)
+
+    i_train = data_dict["i_train"]
+    images, masks = data_dict["images"], data_dict["masks"]
+    H, W = int(data_dict["HW"][0][0]), int(data_dict["HW"][0][1])
+    near, far = data_dict["near"], data_dict["far"]
+    flips = dict(inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
+                 flip_y=cfg.data.flip_y)
+    ray_index = raydata.build_ray_index(
+        [images[i] for i in i_train], [masks[i] for i in i_train],
+        data_dict["times"][i_train], data_dict["img_to_cam"][i_train],
+        data_dict["poses"], data_dict["Ks"], H, W, xyz_min, xyz_max, near,
+        far, device=dev, **flips)
+    Ks = torch.as_tensor(np.asarray(data_dict["Ks"], np.float32), device=dev)
+    poses = torch.as_tensor(np.asarray(data_dict["poses"], np.float32),
+                            device=dev)
+    bg = float(cfg_train["bg_col"])
+    stepsize = float(cfg_model.stepsize)
+    cfg_train["_stepsize"] = stepsize
+    gen = raydata.batch_index_generator(ray_index.n, n_rand, seed=seed)
+
+    # occupancy-pruned sampling after a warm-up: a density-derived
+    # occupancy grid and a static active-sample budget
+    occ_start = int(cfg_train.get("occupancy_start", 1000))
+    occ_every = int(cfg_train.get("occupancy_update_every", 500))
+    occ_frac = float(cfg_train.get("active_fraction", 0.25))
+    use_occ = (bool(cfg_train.get("use_occupancy", True))
+               and occ_start <= n_iters)
+    occ = None
+
+    def build_segment(occupancy_active):
+        optimizer = MaskedAdam(model, cfg_train)
+        budget = None
+        if occupancy_active:
+            n_s = model.cfg.max_steps(stepsize)
+            budget, demanded = active_budget(n_rand, n_s, occ_frac)
+            print(f"stage1: budget audit — active budget {budget} of "
+                  f"{demanded} demanded ({n_rand} rays x {n_s} steps x "
+                  f"{occ_frac:g} active_fraction) — padding "
+                  f"{budget - demanded} "
+                  f"({100 * (budget / max(demanded, 1) - 1):.1f}% over)")
+        step = make_train_step(model, cfg_train, optimizer, Ks, poses, H, W,
+                               near, far, bg, active_budget=budget, **flips)
+        return step, optimizer
+
+    start_step = 0
+    resume = None
+    if ckpt_path and os.path.isfile(ckpt_path):
+        resume = ckpt.load_checkpoint(ckpt_path)
+        start_step = int(resume["global_step"])
+        model = ckpt.tineuvox_from_jax(resume["model_kwargs"],
+                                       resume["params"], dev)
+        print(f"stage1: resuming from {ckpt_path} at step {start_step}")
+    occupancy_active = bool(use_occ and start_step >= occ_start)
+    step_fn, optimizer = build_segment(occupancy_active)
+    if resume is not None:
+        if resume.get("opt_state") is not None:
+            optimizer.load_state_from_jax(resume["opt_state"])
+        if occupancy_active:
+            occ = refresh_occupancy(model, stepsize)
+    print(f"stage1: world size {model.cfg.world_size} x "
+          f"{model.cfg.voxel_dim} on {dev}")
+
+    tv_before = float(cfg_train.get("tv_before", 1e9))
+    tv_after = float(cfg_train.get("tv_after", 0))
+    tv_every = int(cfg_train.get("tv_every", 1))
+    tv_feature_before = float(cfg_train.get("tv_feature_before", 1e9))
+    stats: Dict[str, Any] = {"psnr": [], "loss": [], "seconds": []}
+    t0 = time.time()
+    for global_step in range(1 + start_step, n_iters + 1):
+        if global_step == step_to_half:
+            model.feature.data = model.feature.data.to(torch.bfloat16)
+        rebuild = False
+        if global_step in pg_scale:
+            n_rest = len(pg_scale) - pg_scale.index(global_step) - 1
+            tineuvox.scale_volume_grid(
+                model, int(int(cfg_model.num_voxels) / (2 ** n_rest)))
+            print(f"stage1: step {global_step}: grid rescaled to "
+                  f"{model.cfg.world_size}")
+            rebuild = True
+        if use_occ and global_step == occ_start:
+            occupancy_active = True
+            rebuild = True
+        if rebuild:
+            step_fn, optimizer = build_segment(occupancy_active)
+            if occupancy_active:
+                occ = refresh_occupancy(model, stepsize)
+        elif occupancy_active and global_step % occ_every == 0:
+            occ = refresh_occupancy(model, stepsize)
+
+        rgb, mval, tval, cam, pix = ray_index.gather(next(gen))
+        batch = {
+            "rgb": torch.as_tensor(rgb, dtype=torch.float32, device=dev),
+            "mask": torch.as_tensor(mval, dtype=torch.float32, device=dev),
+            "time": torch.as_tensor(tval, dtype=torch.float32, device=dev),
+            "cam": torch.as_tensor(cam, dtype=torch.int64, device=dev),
+            "pix": torch.as_tensor(pix, dtype=torch.int64, device=dev),
+        }
+        tv_on = (tv_after < global_step < tv_before
+                 and global_step % tv_every == 0)
+        loss, mse = step_fn(batch, tv_on,
+                            occ if occupancy_active else None,
+                            global_step < tv_feature_before)
+
+        if global_step % log_every == 0 or global_step == n_iters:
+            psnr = -10.0 * np.log10(max(float(mse), 1e-12))
+            stats["psnr"].append(psnr)
+            stats["loss"].append(float(loss))
+            stats["seconds"].append(time.time() - t0)
+            print(f"stage1: iter {global_step:6d} | loss {float(loss):.6f} "
+                  f"| psnr {psnr:5.2f} | {time.time() - t0:.1f}s")
+            if callback is not None:
+                callback(global_step, model, model.cfg, stats)
+        if ckpt_path and ckpt_every and global_step % ckpt_every == 0:
+            ckpt.save_tineuvox(ckpt_path, model, optimizer, global_step)
+    return model, model.cfg, stats

@@ -1,6 +1,7 @@
 """Checkpoints in the JAX package's pickle format, read and written
 without jax (``apnerf/utils/checkpoint.py``, ``apnerf/cli.py``
-``save_temporalpoints`` / ``load_temporalpoints``).
+``save_temporalpoints`` / ``load_temporalpoints`` and the stage-1
+``fine_last.pkl`` / ``fine_progress.pkl``).
 
 A checkpoint is a pickle of ``{"global_step", "model_kwargs", "params",
 ...extra}``; ``params`` is the JAX parameter pytree as numpy arrays, where
@@ -145,3 +146,32 @@ def load_temporalpoints(path: str, device=None):
                           frozen_view_dir=sa["frozen_view_dir"],
                           device=device)
     return model, state
+
+
+def tineuvox_from_jax(model_kwargs: Dict[str, Any], tree, device=None):
+    """A ``TiNeuVox`` of the config ``model_kwargs`` holding the JAX
+    parameter pytree ``tree``."""
+    from ..models.tineuvox import TiNeuVox, TiNeuVoxConfig
+    model = TiNeuVox(TiNeuVoxConfig(**model_kwargs))
+    model.load_state_dict(params_from_jax(tree))
+    return model.to(device)
+
+
+def save_tineuvox(path: str, model, optimizer=None,
+                  global_step: int = 0) -> None:
+    """Write a stage-1 checkpoint the JAX package can load:
+    ``fine_last.pkl`` (the model alone) or, with ``optimizer`` (a
+    ``train.masked_adam.MaskedAdam``), ``fine_progress.pkl`` with the Adam
+    ``count`` / ``mu`` / ``nu`` for a mid-stage resume."""
+    extra = None if optimizer is None else {
+        "opt_state": optimizer.state_to_jax()}
+    save_checkpoint(path, model.cfg.get_kwargs(),
+                    params_to_jax(model.state_dict()), extra=extra,
+                    global_step=global_step)
+
+
+def load_tineuvox(path: str, device=None):
+    """The ``TiNeuVox`` of a stage-1 checkpoint of either package."""
+    payload = load_checkpoint(path)
+    return tineuvox_from_jax(payload["model_kwargs"], payload["params"],
+                             device)

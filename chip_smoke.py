@@ -8,21 +8,33 @@ and no result line is printed):
 
 1. device  -- needs CUDA; prints the card and its nvidia-smi name and
    power limit; TF32 off for the fp32 plain versions.
-2. build   -- compiles ``apnerf_torch/csrc/*.cu`` for sm_90a.
-3. kernel  -- each kernel against its plain PyTorch version at the render's
-   shapes (K1-K3 exactly equal, K4's max and mean abs error under
+2. build   -- compiles ``apnerf_torch/csrc/*.cu`` for sm_90a, one nvcc per
+   source in parallel.
+3. kernel  -- each kernel against its plain PyTorch version at its main
+   path's shapes (K1-K3 exactly equal, K4's max and mean abs error under
    ``K4_MAX_ABS_ERR`` / ``K4_MEAN_ABS_ERR``, printed beside a control
-   reading), with the median
-   of CUDA-event timed runs of each side; K4 through ``featmlp_agg``, the
-   entry the render calls.
-4. render  -- the bench scene of ``bench.py:build_model`` (10^4 points,
+   reading), with the median of CUDA-event timed runs of each side; K4
+   through ``featmlp_agg``, the entry the render calls. K5 (scatter) at
+   the three stage-1 grid-gradient shapes: two runs bit-equal, and
+   bit-equal to the plain version on a CPU copy of the inputs (the
+   row-order sum is sequential in both), else under ``K5_MAX_ABS_ERR``,
+   printed beside the bf16-row control.
+4. train   -- stage 1 of the nerf family at full width (160^3 x 12 grid,
+   defor_depth 5, net_width 128, 4096 rays a step) on a 6-view 400 x 400
+   arm scene, ``scene_rep_reconstruction`` for ``TRAIN_STEPS`` steps with
+   one grid rebuild (pg_scale) and the occupancy switch inside the run:
+   finite and falling losses, K5 launched, one step's feature-grid
+   gradient through K5 against the same through the plain version (under
+   ``GRAD_REL_ERR``, beside the bf16-row control), ``fine_last.pkl``
+   written, reloaded and giving the same alpha.
+5. render  -- the bench scene of ``bench.py:build_model`` (10^4 points,
    24 joints, F = 128, K = 8, random weights from a seed) is saved and
    loaded as a checkpoint (K1 runs at load) and a 400 x 400 view is
    rendered in 8192-ray chunks, in exact and in shared k-NN mode. Each mode
    must launch K1-K4, give a finite image with foreground, and agree with
    the same render through the plain versions on the foreground pixels
    (PSNR >= ``PSNR_MIN_DB``, printed beside a control render's).
-5. a JSON line of the kernels, the nvidia-smi line, and last
+6. a JSON line of the kernels, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -63,7 +75,23 @@ KERNELS = [  # name, source, TPU kernel it replaces (pl.pallas_call line)
      "apnerf/kernels/knn_cells_pallas.py:340"),
     ("featmlp", "apnerf_torch/csrc/featmlp.cu",
      "apnerf/kernels/featmlp_pallas.py:203"),
+    ("scatter", "apnerf_torch/csrc/scatter.cu",
+     "apnerf/kernels/scatter_pallas.py:213"),
 ]
+RENDER_KERNELS = ("knn_brute", "knn_count", "knn_radius", "featmlp")
+# K5's gates, each between the sound reading and the control (the plain
+# K5 on bf16-rounded update rows), both taken on an NVIDIA H100 80GB HBM3,
+# 700 W. Phase 3: K5 is bit-equal to the CPU plain version; were it not,
+# an fp32 reordering is what the atomics of the plain version on the card
+# show, max abs error 2.9e-6 to 8.4e-5, against the control's 0.031 to
+# 0.138 (the gate is near their geometric mean). Phase 4: one step's
+# feature-grid gradient, K5 vs the plain version, max abs error 1.37e-7 of
+# max |grad|, against the control's 2.52e-4 (gate near the geometric
+# mean).
+K5_MAX_ABS_ERR = 1.5e-3
+GRAD_REL_ERR = 6e-6
+TRAIN_VIEWS = 6
+TRAIN_STEPS = 10
 
 
 def nvidia_smi_line() -> str:
@@ -137,13 +165,23 @@ def featmlp_fp32_layers(rel, feat, w, wts):
     return (h.reshape(M, K, F) * w.reshape(M, K, 1).float()).sum(1)
 
 
+def scatter_bf16_rows(idx, upd, n_rows, transposed=False):
+    """Control for K5's gates: its plain version with every update row
+    rounded to bf16 first (the JAX package's lossy APNERF_SCATTER_BF16
+    mode)."""
+    import torch
+    from apnerf_torch.kernels import scatter as sc
+    return sc.sorted_window_accumulate_plain(
+        idx, upd.to(torch.bfloat16).float(), n_rows, transposed)
+
+
 @contextmanager
-def plain_kernels(featmlp=None):
+def plain_kernels(featmlp=None, scatter=None):
     """Route every kernel wrapper to its plain PyTorch version (on the
-    card) -- for the comparison renders of this script only. ``featmlp``
-    replaces K4's plain version (the control render)."""
+    card) -- for the comparison runs of this script only. ``featmlp`` /
+    ``scatter`` replace K4's / K5's plain version (the controls)."""
     from apnerf_torch.kernels import featmlp as fm, knn_brute as kb, \
-        knn_cells as kc
+        knn_cells as kc, scatter as sc
     with mock.patch.object(kb, "knn_brute_cuda", kb.knn_brute_plain), \
             mock.patch.object(kc, "knn_count_cuda",
                               lambda q, t, r2: kc.knn_count_plain(
@@ -152,7 +190,9 @@ def plain_kernels(featmlp=None):
                               lambda q, t, k, r2: kc.knn_radius_plain(
                                   q, t["pts_sorted"], k, r2)), \
             mock.patch.object(fm, "featmlp_cuda",
-                              featmlp or fm.featmlp_plain):
+                              featmlp or fm.featmlp_plain), \
+            mock.patch.object(sc, "sorted_window_accumulate_cuda",
+                              scatter or sc.sorted_window_accumulate_plain):
         yield
 
 
@@ -243,6 +283,178 @@ def phase_kernels(torch, pcd, report):
         raise AssertionError(f"featmlp differs: max err {err:g}, mean "
                              f"{mean:g}")
     record("featmlp", f"M={M} K={K} F={F} depth 4", ms, pms, err)
+    phase_scatter(torch, report)
+
+
+def scatter_inputs(torch, n_pad, M=1 << 20, C=96, seed=0):
+    """K5's operands as the stage-1 grid gradient gives them at the scale
+    whose padded grid is ``n_pad``^3: the extended base cells of M samples
+    (a Gaussian blob of points around the grid centre, sigma 1/8 of the
+    bbox, so that windows range from empty to hot), sorted, and [M, C]
+    fp32 corner contributions."""
+    rng = np.random.default_rng(seed)
+    u = np.clip(rng.normal(0.5, 0.125, size=(M, 3)), 0.0, 1.0)
+    b = np.clip(np.floor(u * (n_pad - 1)).astype(np.int64) + 1, 0, n_pad)
+    e = n_pad + 1
+    idx = np.sort((b[:, 0] * e + b[:, 1]) * e + b[:, 2]).astype(np.int32)
+    upd = rng.normal(size=(M, C)).astype(np.float32)
+    return (torch.tensor(idx, device=DEVICE), torch.tensor(upd, device=DEVICE),
+            e ** 3)
+
+
+def phase_scatter(torch, report):
+    """K5 at the three stage-1 shapes (padded grids 161^3, 81^3, 41^3 of
+    the 160^3 nerf grid; M = 2^20, C = 96, transposed)."""
+    from apnerf_torch.kernels import scatter as sc
+    tot, tot_plain, worst = 0.0, 0.0, 0.0
+    for n_pad in (161, 81, 41):
+        idx, upd, n_rows = scatter_inputs(torch, n_pad)
+        ms, out = cuda_ms(lambda: sc.sorted_window_accumulate(
+            idx, upd, n_rows, transposed=True))
+        again = sc.sorted_window_accumulate(idx, upd, n_rows, transposed=True)
+        pms, pout = cuda_ms(lambda: sc.sorted_window_accumulate_plain(
+            idx, upd, n_rows, transposed=True))
+        if not torch.equal(out, again):
+            raise AssertionError(f"scatter n_rows={n_rows}: two runs differ")
+        ref = sc.sorted_window_accumulate_plain(idx.cpu(), upd.cpu(), n_rows,
+                                                transposed=True)
+        out_c = out.cpu()
+        bit_equal = torch.equal(out_c, ref)
+        err = (out_c - ref).abs().max().item()
+        ctl = (scatter_bf16_rows(idx, upd, n_rows, transposed=True).cpu()
+               - ref).abs().max().item()
+        gpu_plain = (pout.cpu() - ref).abs().max().item()
+        del out, again, pout, ref, out_c
+        print(f"kernel scatter M={idx.shape[0]} C={upd.shape[1]} "
+              f"n_rows={n_rows} transposed: kernel {ms:.3f} ms, plain "
+              f"{pms:.3f} ms; deterministic (two runs bit-equal); "
+              f"bit-equal to the plain version on the CPU: {bit_equal} "
+              f"(max_abs_err {err:g}, gate {K5_MAX_ABS_ERR:g} if not); "
+              f"bf16-row control {ctl:g}; plain version on the card "
+              f"(atomics) {gpu_plain:g}", flush=True)
+        if not (bit_equal or err <= K5_MAX_ABS_ERR):
+            raise AssertionError(f"scatter differs at n_rows={n_rows}: "
+                                 f"{err:g}")
+        tot, tot_plain, worst = tot + ms, tot_plain + pms, max(worst, err)
+    print(f"kernel scatter: the three calls of a training step take "
+          f"{tot:.3f} ms, plain {tot_plain:.3f} ms", flush=True)
+    report["scatter"] = dict(ms=tot, plain_ms=tot_plain, max_abs_err=worst)
+
+
+def nerf_config(n_steps):
+    """The nerf family's defaults at full width, cut to ``n_steps`` steps
+    with pg_scale [4] (one rebuild, from 160^3 / 2 to 160^3 voxels) and
+    occupancy_start 2."""
+    from apnerf_torch.config import nerf_default
+    return nerf_default(N_iters=n_steps, pg_scale=[4], occupancy_start=2)
+
+
+def feature_grad(torch, model, loss_fn, batch, occ):
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_fn(batch, occ)
+    loss.backward()
+    torch.cuda.synchronize()
+    return model.feature.grad.detach().clone()
+
+
+def phase_train(torch, ckpt_dir):
+    """Phase 4: stage-1 training at the nerf family's width."""
+    from apnerf_torch import kernels
+    from apnerf_torch.data import rays as raydata
+    from apnerf_torch.data.synthetic import make_scene
+    from apnerf_torch.models import tineuvox
+    from apnerf_torch.train import stage1
+    from apnerf_torch.utils.checkpoint import load_tineuvox, save_tineuvox
+    t0 = time.perf_counter()
+    data = make_scene(TRAIN_VIEWS, H, W, seed=0)
+    scene_s = time.perf_counter() - t0
+    cfg = nerf_config(TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, mcfg, stats = stage1.scene_rep_reconstruction(
+        cfg, data, seed=0, log_every=1, device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in ("scatter",)}
+    losses = stats["loss"]
+    secs = [0.0] + stats["seconds"]
+    step_ms = [1e3 * (b - a) for a, b in zip(secs[:-1], secs[1:])]
+    rebuild = cfg.train_config.pg_scale[-1]
+    after = step_ms[rebuild:]              # steps rebuild + 1 ...
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"train: loss did not fall: {losses}")
+    if launches["scatter"] == 0:
+        raise AssertionError("train: K5 (scatter) was never launched")
+
+    # one step's feature-grid gradient: K5 vs the plain version (atomics)
+    # vs the bf16-row control, at the final model on a fresh batch
+    stepsize = float(cfg.model_and_render.stepsize)
+    ct = dict(cfg.train_config, _stepsize=stepsize)
+    budget, _ = stage1.active_budget(ct["N_rand"], mcfg.max_steps(stepsize),
+                                     0.25)
+    occ = stage1.refresh_occupancy(model, stepsize)
+    Ks = torch.tensor(data["Ks"], device=DEVICE)
+    poses = torch.tensor(data["poses"], device=DEVICE)
+    loss_fn = stage1.make_loss_fn(model, ct, Ks, poses, H, W, data["near"],
+                                  data["far"], 1.0, active_budget=budget)
+    index = raydata.build_ray_index(
+        list(data["images"]), list(data["masks"]), data["times"],
+        data["img_to_cam"], data["poses"], data["Ks"], H, W,
+        np.asarray(mcfg.xyz_min), np.asarray(mcfg.xyz_max), data["near"],
+        data["far"], device=DEVICE)
+    sel = next(raydata.batch_index_generator(index.n, ct["N_rand"], seed=9))
+    rgb, mval, tval, cam, pix = index.gather(sel)
+    batch = {"rgb": torch.tensor(rgb, device=DEVICE),
+             "mask": torch.tensor(mval, device=DEVICE),
+             "time": torch.tensor(tval, device=DEVICE),
+             "cam": torch.tensor(cam, device=DEVICE).long(),
+             "pix": torch.tensor(pix, device=DEVICE).long()}
+    g_k = feature_grad(torch, model, loss_fn, batch, occ)
+    g_k2 = feature_grad(torch, model, loss_fn, batch, occ)
+    with plain_kernels():
+        g_p = feature_grad(torch, model, loss_fn, batch, occ)
+    with plain_kernels(scatter=scatter_bf16_rows):
+        g_c = feature_grad(torch, model, loss_fn, batch, occ)
+    scale = g_p.abs().max().item()
+    rel = (g_k - g_p).abs().max().item() / scale
+    rel_c = (g_c - g_p).abs().max().item() / scale
+    print(f"train stage1 grad: feature-grid gradient of one step, K5 vs the "
+          f"plain version: max abs err / max |grad| = {rel:g} (gate "
+          f"{GRAD_REL_ERR:g}; max |grad| {scale:g}); bf16-row control "
+          f"{rel_c:g}; two K5 steps bit-equal: {torch.equal(g_k, g_k2)}",
+          flush=True)
+    if not (np.isfinite(scale) and scale > 0 and rel <= GRAD_REL_ERR):
+        raise AssertionError(f"train: grid gradient differs ({rel:g})")
+    del g_k, g_k2, g_p, g_c
+
+    path = os.path.join(ckpt_dir, "fine_last.pkl")
+    save_tineuvox(path, model)
+    back = load_tineuvox(path, device=DEVICE)
+    rng = np.random.default_rng(2)
+    lo, hi = np.asarray(mcfg.xyz_min), np.asarray(mcfg.xyz_max)
+    probe = (lo + (hi - lo) * rng.random((4096, 3))).astype(np.float32)
+    a0 = tineuvox.eval_alpha_volume(model, probe, 0.5, stepsize)
+    a1 = tineuvox.eval_alpha_volume(back, probe, 0.5, stepsize)
+    if back.cfg != mcfg or not np.array_equal(a0, a1):
+        raise AssertionError("train: fine_last.pkl does not reload the same "
+                             "model")
+    med = statistics.median(after)
+    print(f"train stage1: nerf width, world size {mcfg.world_size} x "
+          f"{mcfg.voxel_dim}, {TRAIN_STEPS} steps of {ct['N_rand']} rays on "
+          f"{TRAIN_VIEWS} views of {H}x{W} (scene made in {scene_s:.1f} s); "
+          f"losses {[round(x, 6) for x in losses]}; "
+          f"{med:.1f} ms/step (median of steps {rebuild + 1}-{TRAIN_STEPS}, "
+          f"after the rebuild: {[round(x, 1) for x in after]}; "
+          f"{nvidia_smi_line()}); whole run {train_s:.1f} s, step times "
+          f"{[round(x, 1) for x in step_ms]} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"launches {launches}; fine_last.pkl reloads with equal alpha",
+          flush=True)
+    return launches
 
 
 def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
@@ -292,7 +504,7 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
         if out["knn_path"] != mode:
             raise AssertionError(f"{mode} render ran the {out['knn_path']} "
                                  "aggregation")
-        idle = [k for k, v in launches[mode].items() if v == 0]
+        idle = [k for k in RENDER_KERNELS if launches[mode][k] == 0]
         if idle:
             raise AssertionError(f"{mode} render launched no {idle}")
         rgb = out["rgb"]
@@ -342,7 +554,7 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
           "its headline at 50 dB; information only, these weights are not "
           "the JAX bench's)", flush=True)
     return {k: launches["exact"][k] + launches["shared"][k]
-            for k in launches["exact"]}
+            for k in RENDER_KERNELS}
 
 
 def main() -> int:
@@ -379,7 +591,8 @@ def main() -> int:
     report = {}
     phase_kernels(torch, pcd, report)
     with tempfile.TemporaryDirectory() as d:
-        launches = phase_render(torch, pcd, joints, bones, feat, d)
+        launches = phase_train(torch, d)
+        launches.update(phase_render(torch, pcd, joints, bones, feat, d))
 
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=src, replaces=rep,

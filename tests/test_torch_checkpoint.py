@@ -71,9 +71,11 @@ def test_port_writer_round_trips(tmp_path, scene):
 
 
 def test_port_imports_no_jax(tmp_path, scene):
-    """Every apnerf_torch module, then init_params and load_temporalpoints,
-    in a fresh interpreter: neither jax nor the JAX package (apnerf) ever
-    enters sys.modules (conftest imports jax here)."""
+    """Every apnerf_torch module, then init_params, load_temporalpoints
+    and two stage-1 training steps on a tiny scene (the second on the
+    occupancy path), in a fresh interpreter: neither jax nor the JAX
+    package (apnerf) ever enters sys.modules (conftest imports jax
+    here)."""
     model, state = port_model({}, scene)
     path = tmp_path / "port.pkl"
     tck.save_temporalpoints(str(path), model, state)
@@ -93,6 +95,17 @@ def test_port_imports_no_jax(tmp_path, scene):
         "               model.canonical_feat.detach().numpy(),\n"
         "               np.zeros(2000), np.zeros((2000, 3)), [17, 32, 16],\n"
         "               torch.Generator().manual_seed(0))\n"
+        "from apnerf_torch.config import nerf_default\n"
+        "from apnerf_torch.data.synthetic import make_scene\n"
+        "from apnerf_torch.train.stage1 import scene_rep_reconstruction\n"
+        "cfg = nerf_default(N_rand=32, pg_scale=[], occupancy_start=2)\n"
+        "cfg.model_and_render.update(num_voxels=8 ** 3,\n"
+        "                            num_voxels_base=8 ** 3, voxel_dim=4,\n"
+        "                            defor_depth=2, net_width=16)\n"
+        "_, _, stats = scene_rep_reconstruction(\n"
+        "    cfg, make_scene(2, 16, 16), n_iters=2, log_every=1,\n"
+        "    device='cpu')\n"
+        "assert len(stats['loss']) == 2 and np.isfinite(stats['loss']).all()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'apnerf'))\n"
         "assert not bad, bad\n"
