@@ -13,31 +13,18 @@
 // Design: one block of 8 warps per 128 rows (16 output rows m at K = 8).
 // The block builds the layer-1 operand [PE (padded to P_pad) | feat] in
 // shared memory (sinf/cosf in registers: arguments reach x * 2^9, so no
-// fast-math sine), then for each layer streams that layer's bf16 weights
-// into shared memory, runs the GEMM with WMMA fragments (each warp owns
-// 16 rows x F columns), and writes bias + leaky-ReLU back as the next
-// bf16 operand. Activations stay in shared memory; only the [M, F] fp32
+// fast-math sine), then runs the chain of featmlp_chain.cuh (shared with
+// K6, agg.cu): for each layer that layer's bf16 weights are streamed into
+// shared memory, the GEMM runs on WMMA fragments (each warp owns 16 rows x
+// F columns), and bias + leaky-ReLU is written back as the next bf16
+// operand. Activations stay in shared memory; only the [M, F] fp32
 // reduction is written. Shared memory (about 160 KB at F = 128) is above
 // the 48 KB default, so the launch opts in. wgmma/TMA come later.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "featmlp_chain.cuh"
+
+using namespace featmlp;
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
-constexpr int kRows = 128;             // rows (query-neighbour pairs) per block
-constexpr int kWarps = kRows / 16;     // one warp per 16 rows
-constexpr int kThreads = 32 * kWarps;
-
-size_t smem_bytes(int F, int P_pad) {
-  const size_t kd1 = P_pad + F;
-  return kRows * kd1 * sizeof(bf16)      // A: layer operand
-         + kd1 * F * sizeof(bf16)        // W: one layer's weights
-         + (size_t)kRows * F * sizeof(float);  // C: fp32 GEMM result
-}
 
 template <int F>
 __global__ void __launch_bounds__(kThreads) featmlp_kernel(
@@ -52,7 +39,6 @@ __global__ void __launch_bounds__(kThreads) featmlp_kernel(
   bf16* W = A + kRows * kd1;
   float* C = reinterpret_cast<float*>(W + kd1 * F);
   const int row0 = blockIdx.x * kRows;
-  const int P = 3 * (1 + 2 * n_pe);
 
   // ---- layer-1 operand: [x, sin(x_a 2^i), cos(x_a 2^i), 0 pad | feat]
   for (int t = threadIdx.x; t < kRows * kd1; t += kThreads) {
@@ -61,59 +47,13 @@ __global__ void __launch_bounds__(kThreads) featmlp_kernel(
     const int gr = row0 + r;
     bf16 v = __float2bfloat16(0.f);
     if (gr < rows_total) {
-      if (c >= P_pad) {
-        v = feat[(size_t)gr * F + (c - P_pad)];
-      } else if (c < 3) {
-        v = __float2bfloat16(rel[(size_t)gr * 3 + c]);
-      } else if (c < P) {
-        int cc = c - 3;
-        const bool is_cos = cc >= 3 * n_pe;
-        if (is_cos) cc -= 3 * n_pe;
-        const int a = cc / n_pe;
-        const float x = rel[(size_t)gr * 3 + a] * (float)(1 << (cc - a * n_pe));
-        v = __float2bfloat16(is_cos ? cosf(x) : sinf(x));
-      }
+      v = c >= P_pad ? feat[(size_t)gr * F + (c - P_pad)]
+                     : pe_value(rel + (size_t)gr * 3, c, n_pe);
     }
     A[t] = v;
   }
 
-  const int warp = threadIdx.x / 32;
-  for (int l = 0; l < n_layers; ++l) {
-    const int kd = l == 0 ? kd1 : F;
-    const bf16* wsrc = l == 0 ? w1 : wl + (size_t)(l - 1) * F * F;
-    const float* bias = l == 0 ? b1 : bl + (size_t)(l - 1) * F;
-    __syncthreads();  // A written; the previous layer no longer reads W
-    const int n_vec = kd * F / 8;  // 16-byte vectors
-    for (int t = threadIdx.x; t < n_vec; t += kThreads) {
-      reinterpret_cast<int4*>(W)[t] = reinterpret_cast<const int4*>(wsrc)[t];
-    }
-    __syncthreads();
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[F / 16];
-#pragma unroll
-    for (int j = 0; j < F / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-    const bf16* a_rows = A + warp * 16 * kd;
-    for (int k0 = 0; k0 < kd; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, a_rows + k0, kd);
-#pragma unroll
-      for (int j = 0; j < F / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, W + k0 * F + 16 * j, F);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < F / 16; ++j) {
-      wmma::store_matrix_sync(C + warp * 16 * F + 16 * j, acc[j], F,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();  // all warps done reading A before it is overwritten
-    for (int t = threadIdx.x; t < kRows * F; t += kThreads) {
-      const float v = C[t] + bias[t % F];
-      A[t] = __float2bfloat16(v >= 0.f ? v : 0.01f * v);  // next operand
-    }
-  }
+  mlp_chain<F, true>(A, W, C, w1, b1, wl, bl, kd1, n_layers);
   __syncthreads();
 
   // ---- weighted reduction over the K neighbours of each output row
@@ -136,7 +76,7 @@ int launch(const float* rel, const bf16* feat, const float* w, const bf16* w1,
            const float* b1, const bf16* wl, const float* bl, int M, int K,
            int n_pe, int P_pad, int n_layers, float* out,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(F, P_pad);
+  const size_t smem = chain_smem_bytes(F, P_pad);
   cudaError_t err = cudaFuncSetAttribute(
       featmlp_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -37,6 +37,10 @@ SIGNATURES = {
     "featmlp_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, P, P],
     # idx, upd, M, C, n_rows, transposed, offs, out, stream
     "scatter_launch": [P, P, I, I, I, I, P, P, P],
+    # q, nbr, rot, feat, w1, b1, wl, bl, S, share, kc, K, eps, F, n_pe,
+    # P_pad, n_layers, h, kd2, stream
+    "agg_launch": [P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, I, P, P,
+                   P],
 }
 
 _lib = None

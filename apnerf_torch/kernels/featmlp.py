@@ -73,19 +73,24 @@ def pack_weights(layers: List[Tuple[torch.Tensor, torch.Tensor]], F: int,
                           bl.contiguous(), n_pe, P_pad)
 
 
-def featmlp_plain(rel, feat, w, wts: FeatMLPWeights):
+def featmlp_plain(rel, feat, w, wts: FeatMLPWeights, round_last=True):
     """Plain PyTorch K4 on packed operands: exact products of bf16 values
-    accumulated in fp32, fp32 bias, leaky-ReLU, bf16 round per layer."""
+    accumulated in fp32, fp32 bias, leaky-ReLU, bf16 round per layer
+    (``round_last=False``: the last layer stays fp32, as kernel K6 keeps
+    it)."""
     w1, b1, wl, bl, n_pe, P_pad = wts
     M, K, _ = rel.shape
     F = feat.shape[-1]
     e = poc_fre(rel.reshape(M * K, 3).float(), poc_freqs(n_pe, rel.device))
     e = torch.nn.functional.pad(e, (0, P_pad - e.shape[1]))
     a = torch.cat([e.to(torch.bfloat16), feat.reshape(M * K, F)], dim=-1)
-    h = leaky_relu(a.float() @ w1.float() + b1).to(torch.bfloat16)
-    for i in range(wl.shape[0]):
-        h = leaky_relu(h.float() @ wl[i].float() + bl[i]).to(torch.bfloat16)
-    hw = h.float().reshape(M, K, F) * w.reshape(M, K, 1).float()
+    n_hidden = wl.shape[0]
+    h = leaky_relu(a.float() @ w1.float() + b1)
+    for i in range(n_hidden):
+        h = leaky_relu(h.to(torch.bfloat16).float() @ wl[i].float() + bl[i])
+    if round_last:
+        h = h.to(torch.bfloat16).float()
+    hw = h.reshape(M, K, F) * w.reshape(M, K, 1).float()
     return hw.sum(1)
 
 

@@ -1,5 +1,5 @@
-"""TemporalPoints stage-2 point-model render (port of
-``apnerf/models/temporal_points.py``, forward only).
+"""TemporalPoints stage-2 point-model render and skeleton simplification
+(port of ``apnerf/models/temporal_points.py``, forward only).
 
 One code path and one index space: the warped cloud is always Morton-sorted
 into the k-NN tables of ``kernels.knn_cells`` (pad rows included), and the
@@ -9,31 +9,41 @@ static budgets (``M_act``, ``G2``, ``M_pass``, ``S_pass``), their 1024- and
 package's: they decide which samples survive. Every JAX ``argsort`` is a
 stable sort here too.
 
-Not ported yet (raise ``NotImplementedError``): ``fused_agg``,
-``render_pcd_direct``, the non-fused ``sample_rays_compact`` /
-``compact_active`` pair (``APNERF_FUSED_SAMPLER=0`` or budgets that the
-coarse stride does not divide), and the XLA ``feat_net`` formulation
-(``agg_bf16=False`` or ``featmlp_kernel=False``).
+``fused_agg`` takes kernel K6 (``kernels.agg``) under the JAX package's
+own conditions (shared mode, bf16 aggregation, no pose embedding, not
+``render_pcd_direct``, not ``render_weights``, ``feat_depth == 4``);
+otherwise kernel K4 runs. ``aggregate_pts`` reports which ran
+(``knn_path``).
+
+Not ported yet (raise ``NotImplementedError``): the non-fused
+``sample_rays_compact`` / ``compact_active`` pair (``APNERF_FUSED_SAMPLER=0``
+or budgets that the coarse stride does not divide), the XLA ``feat_net``
+formulation (``agg_bf16=False`` or ``featmlp_kernel=False``), and the
+stage-2 losses and training.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as Fn
 from torch import nn
 
+from .. import resolve_device
+from ..kernels.agg import fused_subgroup_agg
 from ..kernels.featmlp import featmlp_agg, pack_weights
 from ..kernels.knn_cells import build_point_tables
+from ..kinematics.treeprune import flatten_merging_rules, merge_joints
 from ..ops import encoding
 from ..ops.activation import raw2alpha
 from ..ops.knn import knn, knn_count, morton_codes
 from ..ops.marching import alpha2weights, composite
 from ..ops.nn import MLP
 from ..ops.rays import ray_aabb, vector_norm
+from ..ops.rotations import rodrigues, rotmat_to_rotvec
 from . import point_warper
 from .tineuvox import RGBNet
 
@@ -157,11 +167,13 @@ def init_params(cfg: TemporalPointsConfig, canonical_pcd, joints, bones,
                 canonical_feat, canonical_alpha, canonical_rgbs,
                 timenet_dims: Sequence[int], generator: torch.Generator,
                 noise_gamma: float = 1e-2, device=None) -> TemporalPoints:
-    """A stage-2 model with fresh networks drawn from ``generator``.
+    """A stage-2 model with fresh networks drawn from ``generator``, on
+    ``device`` (``None``: the CUDA device; raises without one).
 
     Skinning weights from point-to-bone distances as the JAX package's
     ``init_params``; the heads are new (the JAX version copies them from
     the trained backbone)."""
+    device = resolve_device(device)
     P = cfg.n_points
     a = np.array([joints[b[0]] for b in bones], np.float64)
     b = np.array([joints[b[1]] for b in bones], np.float64)
@@ -195,7 +207,10 @@ def init_state(cfg: TemporalPointsConfig, canonical_pcd, joints, bones,
                skeleton_pcd, xyz_min, xyz_max, frozen_view_dir=None,
                device=None) -> Dict[str, Any]:
     """Non-learned buffers: canonical k-NN (kernel K1), kinematic tree,
-    merge state, bboxes."""
+    merge state, bboxes, on ``device`` (``None``: the CUDA device; raises
+    without one)."""
+    device = resolve_device(device)
+
     def t(x, dtype=F32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
@@ -439,14 +454,17 @@ class PointSources:
     kernel K4 (bf16, biases included, as the model runs it; the frame's
     pose embedding folded into the layer-1 bias)."""
 
-    def __init__(self, model: TemporalPoints, tables, t_hat_pcd, inv_rot,
-                 lbs_weights, pose_embedding):
+    def __init__(self, model: TemporalPoints, state, tables, t_hat_pcd,
+                 inv_rot, lbs_weights, pose_embedding):
+        self.model = model
         self.perm = tables["perm"]
         self.Pp = tables["pts_sorted"].shape[0]
         self.geo = torch.cat([self.permute(t_hat_pcd),
                               self.permute(inv_rot.reshape(-1, 9))], -1)
         self.feat = self.permute(model.canonical_feat.to(torch.bfloat16))
         self.lbs = None if lbs_weights is None else self.permute(lbs_weights)
+        self.mean_min_distance = state["mean_min_distance"]
+        self.has_pose_embedding = pose_embedding is not None
         self.featnet = pack_weights(
             [(l.weight.to(torch.bfloat16), l.bias.to(torch.bfloat16))
              for l in model.feat_net.layers], model.cfg.feat_dim,
@@ -458,6 +476,16 @@ class PointSources:
         if pad:
             out = torch.cat([out, out.new_zeros((pad, *out.shape[1:]))], 0)
         return out
+
+    def direct(self):
+        """The per-point tables of the direct point-cloud render
+        (``render_pcd_direct``): Gaussian width ``sig``, clipped canonical
+        alpha and rgb."""
+        m = self.model
+        return (self.permute(self.mean_min_distance
+                             * torch.clamp(m.direct_eps, min=0.0)),
+                self.permute(torch.clamp(m.canonical_alpha, 0, 1)),
+                self.permute(torch.clamp(m.canonical_rgbs, 0, 1)))
 
 
 def _views_emb(cfg, state, viewdirs, ray_of):
@@ -482,12 +510,17 @@ def _heads(model: TemporalPoints, h, views_emb):
 def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
                                q, src, act_ok, R, B, M_full, M_act,
                                query_radius, tables, act_demand,
-                               render_weights=False):
+                               render_pcd_direct=False, render_weights=False):
     """Subgroup-shared k-NN aggregation (``knn_share > 1``): ``knn_cand``
     candidates per subgroup of ``share`` consecutive samples (kernel K3 on
     the subgroup midpoints), pass-compaction on the midpoint's kth
     distance at the enlarged radius, then each member's exact top-K of the
-    candidates. Error is one-sided vs the exact path (JAX docstring)."""
+    candidates. Error is one-sided vs the exact path (JAX docstring).
+
+    With ``cfg.fused_agg`` (and the JAX package's further conditions, see
+    the module docstring) everything from the member-candidate distances
+    to the weighted reduction is kernel K6; otherwise the ranking runs
+    here and ``feat_net`` in kernel K4."""
     cfg = model.cfg
     K = cfg.neighbours
     kc = int(cfg.knn_cand)
@@ -538,49 +571,76 @@ def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
     idxl = idx.long()
     geo = srcs.geo[idxl]                                 # [S, kc, 12]
     feat_k = srcs.feat[idxl]                             # [S, kc, F]
-    rel_p = q_sub[:, :, None, :] - geo[:, None, :, :3]   # [S, share, kc, 3]
-    to_nn = (rel_p ** 2).sum(-1)                         # [S, share, kc]
-    inf = torch.full_like(to_nn, float("inf"))
-    to_nn = torch.where(cand_valid[:, None, :], to_nn, inf)
     rot = geo[..., 3:]                                   # [S, kc, 9]
-    if kc == K:
-        # every valid candidate is a neighbour: no ranking needed (invalid
-        # slots carry inf, zero weight, and reject through kd2)
-        kd2 = to_nn.amax(-1)
-        w = torch.where(torch.isfinite(to_nn), 1.0 / (to_nn + cfg.eps),
-                        torch.zeros_like(to_nn))
+    fused = (cfg.fused_agg and cfg.agg_bf16 and not srcs.has_pose_embedding
+             and not render_pcd_direct and not render_weights
+             and cfg.feat_depth == 4)
+    direct = {}
+    if fused:
+        # kernel K6: invalid candidate slots go to a far sentinel, so they
+        # rank last and a sample whose top-K reaches one is rejected
+        # through kd2 (one-sided, as the inf mask below)
+        nbr = torch.where(cand_valid[..., None], geo[..., :3],
+                          torch.full_like(geo[..., :3], 2e9))
+        h, kd2 = fused_subgroup_agg(q_sub, nbr, rot, feat_k, srcs.featnet,
+                                    K, cfg.eps)
     else:
-        # exact per-member top-K of the kc candidates; ties by position
-        ar = torch.arange(kc, device=dev)
-        less = (to_nn[..., :, None] > to_nn[..., None, :]) | (
-            (to_nn[..., :, None] == to_nn[..., None, :])
-            & (ar[:, None] > ar[None, :]))
-        rank = less.sum(-1)                              # a permutation
-        top = rank < K
-        kd2 = torch.where(top, to_nn, -inf).amax(-1)
-        w = torch.where(top, 1.0 / (to_nn + cfg.eps), torch.zeros_like(to_nn))
-    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-30)
-    if kc > K:
-        # gather the K winners in rank order (the JAX one-hot contractions
-        # at HIGHEST precision select the same values)
-        win = torch.argsort(rank, dim=-1)[..., :K]       # [S, share, K]
-        w_sel = torch.gather(w, -1, win)
-        rel_sel = torch.gather(rel_p, 2, win[..., None].expand(-1, -1, -1, 3))
-        S_, sh = win.shape[:2]
-        rot_sel = torch.gather(rot[:, None].expand(S_, sh, kc, 9), 2,
-                               win[..., None].expand(-1, -1, -1, 9))
-        F = feat_k.shape[-1]
-        feat_sel = torch.gather(feat_k[:, None].expand(S_, sh, kc, F), 2,
-                                win[..., None].expand(-1, -1, -1, F))
-        rel_canon = torch.einsum("mskab,mskb->mska",
-                                 rot_sel.reshape(*rot_sel.shape[:3], 3, 3),
-                                 rel_sel)
-    else:
-        w_sel = w
-        feat_sel = feat_k[:, None].expand(-1, share, -1, -1)
-        rel_canon = torch.einsum("mkab,mskb->mska",
-                                 rot.reshape(rot.shape[0], kc, 3, 3), rel_p)
-    h = _featnet_h(srcs.featnet, rel_canon, feat_sel, w_sel)
+        rel_p = q_sub[:, :, None, :] - geo[:, None, :, :3]   # [S, sh, kc, 3]
+        to_nn = (rel_p ** 2).sum(-1)                     # [S, share, kc]
+        inf = torch.full_like(to_nn, float("inf"))
+        to_nn = torch.where(cand_valid[:, None, :], to_nn, inf)
+        if kc == K:
+            # every valid candidate is a neighbour: no ranking needed
+            # (invalid slots carry inf, zero weight, and reject through kd2)
+            top = torch.ones_like(to_nn, dtype=torch.bool)
+            kd2 = to_nn.amax(-1)
+            w = torch.where(torch.isfinite(to_nn), 1.0 / (to_nn + cfg.eps),
+                            torch.zeros_like(to_nn))
+        else:
+            # exact per-member top-K of the kc candidates; ties by position
+            ar = torch.arange(kc, device=dev)
+            less = (to_nn[..., :, None] > to_nn[..., None, :]) | (
+                (to_nn[..., :, None] == to_nn[..., None, :])
+                & (ar[:, None] > ar[None, :]))
+            rank = less.sum(-1)                          # a permutation
+            top = rank < K
+            kd2 = torch.where(top, to_nn, -inf).amax(-1)
+            w = torch.where(top, 1.0 / (to_nn + cfg.eps),
+                            torch.zeros_like(to_nn))
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-30)
+        if kc > K:
+            # gather the K winners in rank order (the JAX one-hot
+            # contractions at HIGHEST precision select the same values)
+            win = torch.argsort(rank, dim=-1)[..., :K]   # [S, share, K]
+            w_sel = torch.gather(w, -1, win)
+            rel_sel = torch.gather(rel_p, 2,
+                                   win[..., None].expand(-1, -1, -1, 3))
+            S_, sh = win.shape[:2]
+            rot_sel = torch.gather(rot[:, None].expand(S_, sh, kc, 9), 2,
+                                   win[..., None].expand(-1, -1, -1, 9))
+            F = feat_k.shape[-1]
+            feat_sel = torch.gather(feat_k[:, None].expand(S_, sh, kc, F), 2,
+                                    win[..., None].expand(-1, -1, -1, F))
+            rel_canon = torch.einsum(
+                "mskab,mskb->mska",
+                rot_sel.reshape(*rot_sel.shape[:3], 3, 3), rel_sel)
+        else:
+            w_sel = w
+            feat_sel = feat_k[:, None].expand(-1, share, -1, -1)
+            rel_canon = torch.einsum(
+                "mkab,mskb->mska", rot.reshape(rot.shape[0], kc, 3, 3), rel_p)
+        h = _featnet_h(srcs.featnet, rel_canon, feat_sel, w_sel)
+        if render_pcd_direct:
+            sig_all, a_all, c_all = srcs.direct()
+            sig = sig_all[idxl][:, None, :]              # [S, 1, kc]
+            w_dir = torch.where(
+                top, torch.exp(-(to_nn ** 2) / (2.0 * sig ** 2 + 1e-12)),
+                torch.zeros_like(to_nn))
+            w_dir_col = w_dir / (w_dir.sum(-1, keepdim=True) + 1e-12)
+            direct["alpha_direct"] = (w_dir / K
+                                      * a_all[idxl][:, None, :]).sum(-1)
+            direct["rgb_direct"] = (w_dir_col[..., None]
+                                    * c_all[idxl][:, None, :, :]).sum(2)
     alpha, rgb = _heads(model, h, views_emb)
 
     # ---- scatter back to [R, B], one row per subgroup (a subgroup's slots
@@ -605,7 +665,10 @@ def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
         "budget_audit": torch.stack([
             act_demand, torch.tensor(M_act, device=dev), pass_demand,
             torch.tensor(S_pass * share, device=dev)]),
+        "knn_path": "shared_fused" if fused else "shared",
     }
+    for key, val in direct.items():
+        out[key] = scatter(val)
     if render_weights and srcs.lbs is not None:
         lw = srcs.lbs[idxl]                              # [S, kc, J]
         out["lbs_w"] = scatter((lw[:, None] * w[..., None]).sum(2))
@@ -614,7 +677,8 @@ def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
 
 def _aggregate_exact(model: TemporalPoints, state, srcs, viewdirs, q, src,
                      act_ok, R, B, M_full, M_act, query_radius, tables,
-                     act_demand, render_weights=False):
+                     act_demand, render_pcd_direct=False,
+                     render_weights=False):
     """Exact two-phase k-NN aggregation: count within the radius (K2;
     ``count >= K`` is the reference's kth-neighbour cutoff), compact the
     survivors to the pass budget, select K (K3), aggregate (K4)."""
@@ -670,7 +734,15 @@ def _aggregate_exact(model: TemporalPoints, state, srcs, viewdirs, q, src,
         "budget_audit": torch.stack([
             act_demand, torch.tensor(M_act, device=dev), nn_ok.sum(),
             torch.tensor(n_slots, device=dev)]),
+        "knn_path": "exact",
     }
+    if render_pcd_direct:
+        sig_all, a_all, c_all = srcs.direct()
+        w_dir = torch.exp(-(to_nn ** 2) / (2.0 * sig_all[idxl] ** 2 + 1e-12))
+        w_dir_col = w_dir / (w_dir.sum(-1, keepdim=True) + 1e-12)
+        out["alpha_direct"] = scatter((w_dir / K * a_all[idxl]).sum(-1))
+        out["rgb_direct"] = scatter((w_dir_col[..., None]
+                                     * c_all[idxl]).sum(1))
     if render_weights and srcs.lbs is not None:
         out["lbs_w"] = scatter((srcs.lbs[idxl] * w[..., None]).sum(1))
     return out
@@ -681,12 +753,9 @@ def aggregate_pts(model: TemporalPoints, state, frame, rays_o, rays_d,
                   render_weights=False):
     """k-NN feature aggregation along rays, from a ``prepare_frame``
     output -> per-sample [R, B(, .)] arrays, the valid mask, ``step_id``
-    and ``knn_path`` ("exact" or "shared": which aggregation ran)."""
+    and ``knn_path``, which aggregation ran: "exact", "shared" (kernel K4)
+    or "shared_fused" (kernel K6)."""
     cfg = model.cfg
-    if render_pcd_direct:
-        raise NotImplementedError("render_pcd_direct is not ported yet")
-    if cfg.fused_agg:
-        raise NotImplementedError("fused_agg is not ported yet")
     if not (cfg.agg_bf16 and cfg.featmlp_kernel):
         raise NotImplementedError(
             "only the bf16 featmlp aggregation is ported")
@@ -714,9 +783,9 @@ def aggregate_pts(model: TemporalPoints, state, frame, rays_o, rays_d,
     agg = _aggregate_subgroup_shared if shared else _aggregate_exact
     out = agg(model, state, frame["point_sources"], viewdirs, q, src, act_ok,
               R, B, M_full, M_act, query_radius, tables, act_demand,
+              render_pcd_direct=render_pcd_direct,
               render_weights=render_weights)
     out["step_id"] = step_id
-    out["knn_path"] = "shared" if shared else "exact"
     return out
 
 
@@ -763,8 +832,8 @@ def prepare_frame(model: TemporalPoints, state, t=None, rot_params=None,
     wout["occ_info"] = prepare_occupancy(cfg, state, wout["xyz"],
                                          query_radius, calc_min_max)
     wout["point_sources"] = PointSources(
-        model, wout["occ_info"]["knn_tables"], wout["xyz"], wout["inv_rot"],
-        wout["lbs_weights"], wout["pose_embedding"])
+        model, state, wout["occ_info"]["knn_tables"], wout["xyz"],
+        wout["inv_rot"], wout["lbs_weights"], wout["pose_embedding"])
     return wout
 
 
@@ -784,15 +853,19 @@ def forward(model: TemporalPoints, state, rays_o, rays_d, viewdirs, t=None,
                         far, query_radius,
                         render_pcd_direct=render_pcd_direct,
                         render_weights=render_weights)
-    valid = agg["valid"]
-    alpha = agg["alpha"]
     thres = cfg.fast_color_thres
-    if thres > 0:
-        valid = valid & (alpha > thres)
-    weights, alphainv_last = alpha2weights(alpha, valid)
-    if thres > 0:
-        weights = torch.where(weights > thres, weights,
-                              torch.zeros_like(weights))
+
+    def ray_weights(alpha):
+        valid = agg["valid"]
+        if thres > 0:
+            valid = valid & (alpha > thres)
+        weights, alphainv_last = alpha2weights(alpha, valid)
+        if thres > 0:
+            weights = torch.where(weights > thres, weights,
+                                  torch.zeros_like(weights))
+        return weights, alphainv_last
+
+    weights, alphainv_last = ray_weights(agg["alpha"])
     out = {
         "t_hat_pcd": wout["xyz"],
         "rgb_marched": composite(weights, agg["rgb"], bg=bg,
@@ -809,8 +882,95 @@ def forward(model: TemporalPoints, state, rays_o, rays_d, viewdirs, t=None,
     }
     if render_depth:
         out["depth"] = composite(weights, agg["step_id"])
+    if render_pcd_direct:
+        wd, ainv_d = ray_weights(agg["alpha_direct"])
+        out["rgb_marched_direct"] = composite(wd, agg["rgb_direct"], bg=bg,
+                                              alphainv_last=ainv_d)
+        out["alphainv_last_direct"] = ainv_d
     if render_weights and "lbs_w" in agg:
         out["lbs_w_per_sample"] = agg["lbs_w"]
         out["weights_for_render"] = weights
         out["alphainv_for_render"] = alphainv_last
     return out
+
+
+def project_points(points: torch.Tensor, c2w: torch.Tensor,
+                   K: torch.Tensor) -> torch.Tensor:
+    """3D -> 2D projection: points [N, 3], c2w [4, 4], K [3, 3] -> [N, 2]
+    pixel coordinates."""
+    w2c = torch.linalg.inv(c2w)
+    cam = points @ w2c[:3, :3].T + w2c[:3, 3]
+    pix = cam @ K.T
+    return pix[:, :2] / pix[:, 2:]
+
+
+@torch.no_grad()
+def simplify_skeleton(model: TemporalPoints, state, times,
+                      deg_threshold: float = 10.0,
+                      five_percent_heuristic: bool = False):
+    """Prune zero-motion bones and merge same-motion siblings.
+
+    ``times``: [T] train times. Returns (new_state, info): the new state
+    carries the updated ``rot_mask`` / ``sibling_mask`` / ``merge_mat``
+    (``get_weights`` and ``warp`` read them), ``info`` the joints and bones
+    before and after, for rendering and reporting."""
+    cfg = model.cfg
+    J = cfg.n_joints
+    dev = state["canonical_pcd"].device
+    tt = torch.as_tensor(np.asarray(times, np.float32), device=dev)
+    t_embed = encoding.poc_fre(tt.reshape(-1, 1),
+                               encoding.poc_freqs(cfg.timebase_pe, dev))
+    p = point_warper.transform_params(model.forward_warp, t_embed)
+    T = tt.shape[0]                                      # p: [T, J+1, 4]
+    if cfg.over_parameterized_rot:
+        rot_angles = p[:, :J, -1].cpu().numpy()
+        R, _ = rodrigues(p[:, :J, :].reshape(-1, 4))
+    else:
+        rot_angles = (np.sqrt((p[:, :J, :3].cpu().numpy() ** 2).sum(-1))
+                      % (2 * np.pi))
+        R, _ = rodrigues(p[:, :J, :3].reshape(-1, 3))
+    R = R.reshape(T, J, 3, 3).cpu().numpy()
+
+    # pairwise rotation similarity through the relative geodesic angle
+    rel = np.einsum("tiab,tjcb->tijac", R, R)            # R_i R_j^T
+    ang = np.linalg.norm(
+        rotmat_to_rotvec(torch.as_tensor(rel.reshape(-1, 3, 3))).numpy(),
+        axis=-1).reshape(T, J, J)
+    if five_percent_heuristic:
+        th_count = int(T * 0.05)
+        sim = (np.rad2deg(ang) >= deg_threshold).sum(0) <= th_count
+        zero_motion = ((np.rad2deg(np.abs(rot_angles)) >= deg_threshold)
+                       .sum(0) <= th_count)
+    else:
+        deg_std = np.rad2deg(np.sqrt((ang ** 2).mean(0)))
+        sim = deg_std <= deg_threshold
+        # the reference's average heuristic takes no square root
+        zero_motion = np.rad2deg((rot_angles ** 2).mean(0)) <= deg_threshold
+    np.fill_diagonal(sim, True)
+
+    prune = zero_motion.copy()
+    prune[0] = False                                     # never the root
+
+    joints_np = model.joints.detach().cpu().numpy()
+    bones = [list(map(int, b)) for b in np.asarray(state["bones"])]
+    (new_joints, new_bones, merging_rules, joints_to_keep, rotations_to_keep,
+     _, sibling_rules) = merge_joints(
+        joints_np, bones, prune, sim, convert_merging_rules=False)
+
+    flat = np.asarray(flatten_merging_rules(merging_rules))
+    merge_mat = np.zeros((J, J), np.float32)
+    merge_mat[np.arange(J), flat] = 1.0                  # columns sum weights
+
+    new_state = dict(state)
+    new_state["rot_mask"] = state["rot_mask"] | torch.as_tensor(prune,
+                                                                device=dev)
+    new_state["sibling_mask"] = torch.as_tensor(
+        sibling_rules.astype(np.int64), device=dev)
+    new_state["merge_mat"] = torch.as_tensor(merge_mat, device=dev)
+    info = {
+        "prune_bones": prune, "merging_rules": merging_rules,
+        "joints_to_keep": joints_to_keep, "new_joints": new_joints,
+        "new_bones": new_bones, "rotations_to_keep": rotations_to_keep,
+        "old_joints": joints_np, "old_bones": bones,
+    }
+    return new_state, info

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import resolve_device
 from ..ops import compaction, encoding
 from ..ops.activation import raw2alpha
 from ..ops.grid import mult_dist_interp, resize_trilinear, \
@@ -210,8 +211,10 @@ class TiNeuVox(nn.Module):
 
 def init_model(cfg: TiNeuVoxConfig, generator: torch.Generator,
                device=None) -> TiNeuVox:
-    """A fresh stage-1 model, networks drawn from ``generator``."""
-    return TiNeuVox(cfg).reset_parameters_(generator).to(device)
+    """A fresh stage-1 model, networks drawn from ``generator``, on
+    ``device`` (``None``: the CUDA device; raises without one)."""
+    return TiNeuVox(cfg).reset_parameters_(generator).to(
+        resolve_device(device))
 
 
 def _act_dtype(cfg: TiNeuVoxConfig) -> torch.dtype:

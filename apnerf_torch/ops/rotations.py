@@ -1,6 +1,8 @@
 """Rotation utilities (port of ``apnerf/ops/rotations.py``)."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -42,3 +44,31 @@ def special_procrustes(M: torch.Tensor) -> torch.Tensor:
     d = torch.cat([torch.ones(*M.shape[:-2], 2, dtype=M.dtype,
                               device=M.device), det[..., None]], dim=-1)
     return (u * d[..., None, :]) @ vt
+
+
+def rotmat_to_rotvec(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> axis-angle vector [..., 3] whose
+    norm is the angle in [0, pi]. Near pi, where the antisymmetric part
+    vanishes, the axis comes from the diagonal of (R + I) / 2."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.acos(torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0))
+    v = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                     R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-6
+    scale = torch.where(small, torch.full_like(theta, 0.5),
+                        theta / torch.where(small, torch.ones_like(theta),
+                                            2.0 * sin_theta))
+    vec = v * scale[..., None]
+    near_pi = theta > math.pi - 1e-3
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    axis = torch.sqrt(torch.clamp((diag + 1.0) / 2.0, 0.0, 1.0))
+    vec_pi = axis * torch.sign(v + 1e-20) * theta[..., None]
+    return torch.where(near_pi[..., None], vec_pi, vec)
+
+
+def geodesic_angle(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
+    """Relative rotation angle |log(R1 R2^T)|."""
+    return torch.linalg.norm(
+        rotmat_to_rotvec(R1 @ R2.transpose(-1, -2)), dim=-1)

@@ -23,6 +23,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..data import rays as raydata
 from ..models import tineuvox
 from ..ops import compaction, marching
@@ -161,7 +162,8 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
                              mesh=None, device=None):
     """Run stage-1 training end to end; returns (model, model_cfg, stats).
 
-    ``device``: default CUDA when available. On CUDA the deformation and
+    ``device``: ``None`` is the CUDA device (raises without one);
+    ``"cpu"`` runs on the CPU. On CUDA the deformation and
     feature MLPs run in bf16 (``mlp_bf16``, as the JAX package on its
     accelerator); on the CPU everything is fp32. With ``ckpt_path`` and
     ``ckpt_every``: periodic ``fine_progress.pkl`` checkpoints (model, Adam
@@ -178,8 +180,7 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
     if n_micro > 1 or (n_micro == 0 and n_rand > 4096):
         raise NotImplementedError("ray microbatching is not ported: use "
                                   "N_rand <= 4096 and ray_microbatch 0 or 1")
-    dev = torch.device(device if device is not None else
-                       ("cuda" if torch.cuda.is_available() else "cpu"))
+    dev = resolve_device(device)
     cfg_model = cfg.model_and_render
     cfg_train = dict(cfg.train_config)
     n_iters = n_iters or int(cfg_train["N_iters"])

@@ -20,6 +20,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 
 def save_checkpoint(path: str, model_kwargs: Dict[str, Any], params,
                     extra: Optional[Dict[str, Any]] = None,
@@ -106,8 +108,10 @@ def mlp_dims(state_dict: Dict[str, torch.Tensor], prefix: str) -> List[int]:
 
 
 def model_from_jax(cfg, tree, device=None):
-    """A ``TemporalPoints`` holding the JAX parameter pytree ``tree``."""
+    """A ``TemporalPoints`` holding the JAX parameter pytree ``tree``, on
+    ``device`` (``None``: the CUDA device; raises without one)."""
     from ..models.temporal_points import TemporalPoints
+    device = resolve_device(device)
     sd = params_from_jax(tree)
     model = TemporalPoints(cfg, timenet_dims=mlp_dims(sd, "timenet"))
     model.load_state_dict(sd)
@@ -133,9 +137,11 @@ def save_temporalpoints(path: str, model, state,
 
 
 def load_temporalpoints(path: str, device=None):
-    """(model, state) from a ``temporalpoints_last.pkl``; ``state`` is
-    rebuilt by ``init_state`` (kernel K1 runs here)."""
+    """(model, state) from a ``temporalpoints_last.pkl`` on ``device``
+    (``None``: the CUDA device; raises without one); ``state`` is rebuilt
+    by ``init_state`` (kernel K1 runs here)."""
     from ..models import temporal_points as tp
+    device = resolve_device(device)
     payload = load_checkpoint(path)
     cfg = tp.TemporalPointsConfig(**payload["model_kwargs"])
     model = model_from_jax(cfg, payload["params"], device)
@@ -150,8 +156,10 @@ def load_temporalpoints(path: str, device=None):
 
 def tineuvox_from_jax(model_kwargs: Dict[str, Any], tree, device=None):
     """A ``TiNeuVox`` of the config ``model_kwargs`` holding the JAX
-    parameter pytree ``tree``."""
+    parameter pytree ``tree``, on ``device`` (``None``: the CUDA device;
+    raises without one)."""
     from ..models.tineuvox import TiNeuVox, TiNeuVoxConfig
+    device = resolve_device(device)
     model = TiNeuVox(TiNeuVoxConfig(**model_kwargs))
     model.load_state_dict(params_from_jax(tree))
     return model.to(device)
@@ -171,7 +179,8 @@ def save_tineuvox(path: str, model, optimizer=None,
 
 
 def load_tineuvox(path: str, device=None):
-    """The ``TiNeuVox`` of a stage-1 checkpoint of either package."""
+    """The ``TiNeuVox`` of a stage-1 checkpoint of either package, on
+    ``device`` (``None``: the CUDA device; raises without one)."""
     payload = load_checkpoint(path)
     return tineuvox_from_jax(payload["model_kwargs"], payload["params"],
                              device)

@@ -18,7 +18,14 @@ and no result line is printed):
    the three stage-1 grid-gradient shapes: two runs bit-equal, and
    bit-equal to the plain version on a CPU copy of the inputs (the
    row-order sum is sequential in both), else under ``K5_MAX_ABS_ERR``,
-   printed beside the bf16-row control.
+   printed beside the bf16-row control, and beside the one library call
+   that computes the same (``index_add_``). K6 (agg) at the bench shape
+   (4480 subgroups of 16 members, 8 candidates) and with 12 candidates,
+   ~10% of the slots invalid: ``kd2`` bit-equal, ``h`` finite and under
+   ``K6_MAX_ABS_ERR`` / ``K6_MEAN_ABS_ERR``, beside the same control as
+   K4's. Every kernel's time stands beside its bound: the larger of its
+   bytes over the card's memory rate and its operations over the card's
+   peak for their type.
 4. train   -- stage 1 of the nerf family at full width (160^3 x 12 grid,
    defor_depth 5, net_width 128, 4096 rays a step) on a 6-view 400 x 400
    arm scene, ``scene_rep_reconstruction`` for ``TRAIN_STEPS`` steps with
@@ -34,7 +41,18 @@ and no result line is printed):
    must launch K1-K4, give a finite image with foreground, and agree with
    the same render through the plain versions on the foreground pixels
    (PSNR >= ``PSNR_MIN_DB``, printed beside a control render's).
-6. a JSON line of the kernels, the nvidia-smi line, and last
+6. render views -- the same checkpoint through ``load_temporalpoints``
+   (no device given: the card), ``points_render_config`` with
+   ``fused_agg`` and ``make_points_renderer(render_weights=False)``, then
+   ``render_viewpoints`` over ``N_VIEWS`` views of 400 x 400 with the
+   plain-version renders as gt images: K6 must launch and K4 must not, the
+   images must be finite with foreground and agree with the plain-version
+   renders on the foreground (PSNR >= ``FUSED_PSNR_MIN_DB``, beside a
+   control render's); frame times fused / shared / exact. At a smaller
+   depth: one ``render_pcd_direct`` view, ``simplify_skeleton`` and a
+   ``repose`` with LBS-weight images, and one ``make_backbone_renderer``
+   view of the stage-1 model of phase 4.
+7. a JSON line of the kernels, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -77,8 +95,29 @@ KERNELS = [  # name, source, TPU kernel it replaces (pl.pallas_call line)
      "apnerf/kernels/featmlp_pallas.py:203"),
     ("scatter", "apnerf_torch/csrc/scatter.cu",
      "apnerf/kernels/scatter_pallas.py:213"),
+    ("agg", "apnerf_torch/csrc/agg.cu", "apnerf/kernels/agg_pallas.py:230"),
 ]
 RENDER_KERNELS = ("knn_brute", "knn_count", "knn_radius", "featmlp")
+# K6's gates, from readings on an NVIDIA H100 80GB HBM3, 700 W. The control
+# is the plain K6 without its per-layer bf16 round. The mean abs error
+# tells the two apart: 2.34e-7 / 2.32e-7 (8 / 12 candidates) against the
+# control's 1.45e-5 / 1.35e-5; the gate is near their geometric mean. The
+# max abs error does not (2.48e-4 / 2.37e-4 against 2.48e-4 / 2.82e-4: a
+# rare flip of one bf16 step of a sine, as in K4), so its gate is only a
+# ceiling at twice the reading. The fused render against the plain-version
+# render on the foreground: 164.11 dB against the control render's
+# 146.63 dB; the gate is their midpoint.
+K6_MAX_ABS_ERR = 5e-4
+K6_MEAN_ABS_ERR = 1.8e-6
+FUSED_PSNR_MIN_DB = 155.0
+N_VIEWS = 3
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
+# memory bytes/s, bf16 tensor-core and fp32 non-tensor-core FLOP/s. A
+# kernel's bound is the larger of its bytes (each input read once, each
+# output written once) over the first and its operations over the peak of
+# their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 # K5's gates, each between the sound reading and the control (the plain
 # K5 on bf16-rounded update rows), both taken on an NVIDIA H100 80GB HBM3,
 # 700 W. Phase 3: K5 is bit-equal to the CPU plain version; were it not,
@@ -101,6 +140,53 @@ def nvidia_smi_line() -> str:
     if res.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class Report:
+    """What the kernels JSON line says of each kernel: times and bounds
+    add up over the shapes a kernel is recorded at (the calls one chunk or
+    one training step makes), the error is the worst."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def add(self, name, shape, ms, plain_ms, err, moved_bytes, ops, ops_type,
+            library_ms=None):
+        t_bytes = 1e3 * moved_bytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * ops / PEAK_FLOPS[ops_type]
+        bound = max(t_bytes, t_ops)
+        lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+        print(f"kernel {name} {shape}: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms{lib}, bound {bound:.5f} ms "
+              f"({moved_bytes / 1e6:.3f} MB -> {t_bytes:.5f} ms, "
+              f"{ops / 1e9:.3f} G{ops_type} op -> {t_ops:.5f} ms), "
+              f"max_abs_err {err:g}", flush=True)
+        row = self.rows.setdefault(name, dict(
+            ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+            library_ms=None, _bytes=0.0, _ops=0.0))
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["bound_ms"] += bound
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["_bytes"] += t_bytes
+        row["_ops"] += t_ops
+        if library_ms is not None:
+            row["library_ms"] = (row["library_ms"] or 0.0) + library_ms
+
+    def json_rows(self, launches):
+        out = []
+        for name, src, rep in KERNELS:
+            row = dict(self.rows[name])
+            by = "operations" if row.pop("_ops") >= row.pop("_bytes") \
+                else "bytes"
+            out.append(dict(name=name, route="cuda", source=src,
+                            replaces=rep, launches=launches[name],
+                            bound_by=by, **row))
+        return out
 
 
 def cuda_ms(fn, reps=7):
@@ -175,14 +261,31 @@ def scatter_bf16_rows(idx, upd, n_rows, transposed=False):
         idx, upd.to(torch.bfloat16).float(), n_rows, transposed)
 
 
+def agg_fp32_layers(q_sub, nbr, rot, feat, wts, K, eps):
+    """Control for K6's gates: its plain version with the activations kept
+    in fp32 between layers."""
+    from apnerf_torch.kernels import agg
+    rc, w, kd2 = agg.subgroup_geometry(q_sub, nbr, rot, K, eps)
+    S, share, kc = w.shape
+    F = feat.shape[-1]
+    h = featmlp_fp32_layers(
+        rc.reshape(S * share, kc, 3),
+        feat[:, None].expand(S, share, kc, F).reshape(S * share, kc, F),
+        w.reshape(S * share, kc), wts)
+    return h.reshape(S, share, F), kd2
+
+
 @contextmanager
-def plain_kernels(featmlp=None, scatter=None):
+def plain_kernels(featmlp=None, scatter=None, agg=None):
     """Route every kernel wrapper to its plain PyTorch version (on the
     card) -- for the comparison runs of this script only. ``featmlp`` /
-    ``scatter`` replace K4's / K5's plain version (the controls)."""
-    from apnerf_torch.kernels import featmlp as fm, knn_brute as kb, \
-        knn_cells as kc, scatter as sc
+    ``scatter`` / ``agg`` replace K4's / K5's / K6's plain version (the
+    controls)."""
+    from apnerf_torch.kernels import agg as ag, featmlp as fm, \
+        knn_brute as kb, knn_cells as kc, scatter as sc
     with mock.patch.object(kb, "knn_brute_cuda", kb.knn_brute_plain), \
+            mock.patch.object(ag, "fused_subgroup_agg_cuda",
+                              agg or ag.fused_subgroup_agg_plain), \
             mock.patch.object(kc, "knn_count_cuda",
                               lambda q, t, r2: kc.knn_count_plain(
                                   q, t["pts_sorted"], r2)), \
@@ -221,16 +324,21 @@ def phase_kernels(torch, pcd, report):
                               stable=True)
         return q[order].contiguous()
 
-    def record(name, shape, ms, plain_ms, err):
-        print(f"kernel {name} {shape}: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, max_abs_err {err:g}", flush=True)
-        report[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+    # a squared distance is 3 subtractions, 3 products, 2 additions
+    PAIR_FLOP = 8
+
+    def pairs_examined(q, r2):
+        """Query-point pairs that K2 / K3 must look at for these queries:
+        those of the tiles within the radius of each query block."""
+        _, cnt = kc.candidate_tiles(q, tabs, r2)
+        return int(cnt.sum()) * kc.QB * tabs["pts_t"].shape[2]
 
     ms, (d, i) = cuda_ms(lambda: kb.knn_brute(p, p, 8))
     pms, (pd, pi) = cuda_ms(lambda: kb.knn_brute_plain(p, p, 8))
     if not (torch.equal(d, pd) and torch.equal(i, pi)):
         raise AssertionError("knn_brute differs from its plain version")
-    record("knn_brute", "P=10000 k=8", ms, pms, 0.0)
+    report.add("knn_brute", "P=10000 k=8", ms, pms, 0.0,
+               nbytes(p, p, d, i), PAIR_FLOP * p.shape[0] ** 2, "fp32")
 
     # group midpoints (7,392, prefilter radius) and samples (131,072)
     stepdist = 0.5 * 0.012
@@ -242,7 +350,9 @@ def phase_kernels(torch, pcd, report):
                                                      r2))
         if not torch.equal(c, pc):
             raise AssertionError(f"knn_count differs at M={n}")
-        record("knn_count", f"M={n}", ms, pms, 0.0)
+        report.add("knn_count", f"M={n}", ms, pms, 0.0,
+                   nbytes(q, tabs["pts_t"], c),
+                   PAIR_FLOP * pairs_examined(q, r2), "fp32")
 
     r2_sel = float((np.sqrt(RADIUS) + 15 * stepdist / 2) ** 2)
     for n, r2 in ((8192, r2_sel), (71680, RADIUS)):
@@ -252,7 +362,9 @@ def phase_kernels(torch, pcd, report):
             q, tabs["pts_sorted"], 8, r2))
         if not (torch.equal(d, pd) and torch.equal(i, pi)):
             raise AssertionError(f"knn_radius differs at M={n}")
-        record("knn_radius", f"M={n} k=8", ms, pms, 0.0)
+        report.add("knn_radius", f"M={n} k=8", ms, pms, 0.0,
+                   nbytes(q, tabs["pts_t"], d, i),
+                   PAIR_FLOP * pairs_examined(q, r2), "fp32")
 
     M, K, F, n_pe = 71680, 8, 128, 10
     rel = (0.05 * torch.randn(M, K, 3, generator=g)).to(dev)
@@ -282,8 +394,56 @@ def phase_kernels(torch, pcd, report):
             and mean <= K4_MEAN_ABS_ERR):
         raise AssertionError(f"featmlp differs: max err {err:g}, mean "
                              f"{mean:g}")
-    record("featmlp", f"M={M} K={K} F={F} depth 4", ms, pms, err)
+    mlp_flop = 2 * (dims[0] * F + 3 * F * F)          # per MLP row
+    report.add("featmlp", f"M={M} K={K} F={F} depth 4", ms, pms, err,
+               nbytes(rel, feat, w, wts.w1, wts.b1, wts.wl, wts.bl, h),
+               M * K * mlp_flop, "bf16")
+    phase_agg(torch, report, layers, g)
     phase_scatter(torch, report)
+
+
+def phase_agg(torch, report, layers, g, S=4480, share=16, K=8, F=128,
+              n_pe=10):
+    """K6 at the bench shape (one 8192-ray chunk's pass budget: 4480
+    subgroups of 16 members, 8 candidates) and with 12 candidates; ~10% of
+    the candidate slots invalid (at the sentinel position)."""
+    from apnerf_torch.kernels import agg as ag, featmlp as fm
+    dev = torch.device(DEVICE)
+    wts = fm.pack_weights(layers, F, n_pe, None)
+    mlp_flop = 2 * ((3 * (1 + 2 * n_pe) + F) * F + 3 * F * F)
+    for kc in (8, 12):
+        q = (0.05 * torch.randn(S, share, 3, generator=g)).to(dev)
+        nbr = q[:, :1] + (0.05 * torch.randn(S, kc, 3, generator=g)).to(dev)
+        invalid = (torch.rand(S, kc, generator=g) < 0.1).to(dev)
+        nbr = torch.where(invalid[..., None], torch.full_like(nbr, 2e9), nbr)
+        rot = torch.randn(S, kc, 9, generator=g).to(dev)
+        feat = (0.1 * torch.randn(S, kc, F, generator=g)).to(
+            dev, torch.bfloat16)
+        args = (q, nbr.contiguous(), rot, feat, wts, K, 1e-6)
+        ms, (h, kd2) = cuda_ms(lambda: ag.fused_subgroup_agg(*args))
+        pms, (ph, pkd2) = cuda_ms(lambda: ag.fused_subgroup_agg_plain(*args))
+        ch, _ = agg_fp32_layers(*args)
+        d, dc = (h - ph).abs(), (ch - ph).abs()
+        err, mean = d.max().item(), d.mean().item()
+        rejected = float((pkd2 > 1e17).float().mean())
+        print(f"kernel agg kc={kc}: kd2 bit-equal {torch.equal(kd2, pkd2)} "
+              f"({rejected:.3f} of the samples reach an invalid slot), h "
+              f"max_abs_err {err:g} (gate {K6_MAX_ABS_ERR:g}), mean_abs_err "
+              f"{mean:g} (gate {K6_MEAN_ABS_ERR:g}), max |h| "
+              f"{ph.abs().max().item():g}; control without the per-layer "
+              f"bf16 round: max {dc.max().item():g}, mean "
+              f"{dc.mean().item():g}; kernel {ms:.3f} ms, plain {pms:.3f} ms",
+              flush=True)
+        if not (torch.equal(kd2, pkd2) and bool(torch.isfinite(h).all())
+                and err <= K6_MAX_ABS_ERR and mean <= K6_MEAN_ABS_ERR):
+            raise AssertionError(f"agg differs at kc={kc}: kd2 equal "
+                                 f"{torch.equal(kd2, pkd2)}, max err {err:g},"
+                                 f" mean {mean:g}")
+        if kc == 8:     # the main path's shape
+            report.add("agg", f"S={S} share={share} kc={kc} K={K} F={F}", ms,
+                       pms, err, nbytes(q, nbr, rot, feat, wts.w1, wts.b1,
+                                        wts.wl, wts.bl, h, kd2),
+                       S * share * kc * mlp_flop, "bf16")
 
 
 def scatter_inputs(torch, n_pad, M=1 << 20, C=96, seed=0):
@@ -306,7 +466,6 @@ def phase_scatter(torch, report):
     """K5 at the three stage-1 shapes (padded grids 161^3, 81^3, 41^3 of
     the 160^3 nerf grid; M = 2^20, C = 96, transposed)."""
     from apnerf_torch.kernels import scatter as sc
-    tot, tot_plain, worst = 0.0, 0.0, 0.0
     for n_pad in (161, 81, 41):
         idx, upd, n_rows = scatter_inputs(torch, n_pad)
         ms, out = cuda_ms(lambda: sc.sorted_window_accumulate(
@@ -314,6 +473,10 @@ def phase_scatter(torch, report):
         again = sc.sorted_window_accumulate(idx, upd, n_rows, transposed=True)
         pms, pout = cuda_ms(lambda: sc.sorted_window_accumulate_plain(
             idx, upd, n_rows, transposed=True))
+        idx64 = idx.long()
+        lms, _ = cuda_ms(lambda: torch.zeros(
+            (n_rows, upd.shape[1]), device=upd.device).index_add_(
+                0, idx64, upd))
         if not torch.equal(out, again):
             raise AssertionError(f"scatter n_rows={n_rows}: two runs differ")
         ref = sc.sorted_window_accumulate_plain(idx.cpu(), upd.cpu(), n_rows,
@@ -326,8 +489,8 @@ def phase_scatter(torch, report):
         gpu_plain = (pout.cpu() - ref).abs().max().item()
         del out, again, pout, ref, out_c
         print(f"kernel scatter M={idx.shape[0]} C={upd.shape[1]} "
-              f"n_rows={n_rows} transposed: kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms; deterministic (two runs bit-equal); "
+              f"n_rows={n_rows} transposed: deterministic (two runs "
+              f"bit-equal); "
               f"bit-equal to the plain version on the CPU: {bit_equal} "
               f"(max_abs_err {err:g}, gate {K5_MAX_ABS_ERR:g} if not); "
               f"bf16-row control {ctl:g}; plain version on the card "
@@ -335,10 +498,15 @@ def phase_scatter(torch, report):
         if not (bit_equal or err <= K5_MAX_ABS_ERR):
             raise AssertionError(f"scatter differs at n_rows={n_rows}: "
                                  f"{err:g}")
-        tot, tot_plain, worst = tot + ms, tot_plain + pms, max(worst, err)
+        M, C = upd.shape
+        report.add("scatter", f"M={M} C={C} n_rows={n_rows}", ms, pms, err,
+                   nbytes(idx, upd) + 4 * n_rows * C, M * C, "fp32",
+                   library_ms=lms)
+    row = report.rows["scatter"]
     print(f"kernel scatter: the three calls of a training step take "
-          f"{tot:.3f} ms, plain {tot_plain:.3f} ms", flush=True)
-    report["scatter"] = dict(ms=tot, plain_ms=tot_plain, max_abs_err=worst)
+          f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, index_add_ "
+          f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms",
+          flush=True)
 
 
 def nerf_config(n_steps):
@@ -454,7 +622,7 @@ def phase_train(torch, ckpt_dir):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
           f"launches {launches}; fine_last.pkl reloads with equal alpha",
           flush=True)
-    return launches
+    return launches, model, data, stepsize
 
 
 def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
@@ -557,6 +725,175 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
             for k in RENDER_KERNELS}
 
 
+def phase_views(torch, ckpt_dir, stage1_model, stage1_data, stepsize):
+    """Phase 6: ``render_viewpoints`` and ``repose`` at full width."""
+    from apnerf_torch import cli, kernels
+    from apnerf_torch.models import temporal_points as tp
+    from apnerf_torch.render.render import render_viewpoints
+    from apnerf_torch.render.renderers import (make_backbone_renderer,
+                                               make_points_renderer)
+    from apnerf_torch.utils.checkpoint import load_temporalpoints
+    near, far, bg = 0.5, 6.0, 1.0
+    n = N_VIEWS
+    # no device given: the entry points take the card
+    model, state = load_temporalpoints(
+        os.path.join(ckpt_dir, "temporalpoints_shared.pkl"))
+    if state["canonical_pcd"].device.type != "cuda":
+        raise AssertionError("load_temporalpoints did not take the card")
+    base = model.cfg
+    shared = dict(knn_share=16, knn_cand=8, coarse_stride=32)
+    modes = {mode: cli.points_render_config(
+        base, {"pcd_model_and_render": over}) for mode, over in (
+            ("fused", dict(shared, fused_agg=True)),
+            ("shared", dict(shared, fused_agg=False)),
+            ("exact", dict(render_exact=True)))}
+    # cameras on an arc about the cloud, times over the whole motion
+    poses = np.repeat(np.eye(4, dtype=np.float32)[None], n, 0)
+    for i, a in enumerate(np.linspace(-0.3, 0.3, n)):
+        poses[i, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                            [-np.sin(a), 0, np.cos(a)]]
+        poses[i, :3, 3] = [3.0 * np.sin(a), 0.0, 3.0 * np.cos(a)]
+    Ks = np.repeat(np.array([[FOCAL, 0, W / 2], [0, FOCAL, H / 2],
+                             [0, 0, 1]], np.float32)[None], n, 0)
+    HW = np.array([[H, W]] * n)
+    times = np.linspace(0.0, 1.0, n).astype(np.float32)
+    data = dict(poses=poses, Ks=Ks, HW=HW)
+
+    def render(mode, **kw):
+        model.cfg = modes[mode]
+        view = make_points_renderer(model, state, near, far, bg,
+                                    render_weights=False)
+        return render_viewpoints(view, poses, HW, Ks, times, chunk=CHUNK,
+                                 verbose=False, **kw)
+
+    with plain_kernels():
+        ref = render("fused")
+    with plain_kernels(agg=agg_fp32_layers):
+        ctl = render("fused")
+    kernels.reset_launches()
+    out = render("fused", gt_imgs=ref["rgbs"], eval_psnr=True, eval_ssim=True,
+                 eval_lpips_alex=True)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches["agg"] == 0 or launches["featmlp"] != 0:
+        raise AssertionError(f"render views: the fused render launched "
+                             f"{launches}")
+    rgbs = out["rgbs"]
+    if rgbs.shape != (n, H, W, 3) or not np.isfinite(rgbs).all() \
+            or not np.isfinite(out["depths"]).all():
+        raise AssertionError(f"render views: bad images {rgbs.shape}")
+    # over the foreground only: the background is bg whatever K6 gives
+    fg_mask = ((1.0 - rgbs.min(-1)) > 1e-3) | ((1.0 - ref["rgbs"].min(-1))
+                                               > 1e-3)
+    fg = float(fg_mask.mean())
+    if fg < 0.01:
+        raise AssertionError(f"render views: background-only images "
+                             f"(foreground {fg:.4f})")
+    p_db = psnr(rgbs, ref["rgbs"], fg_mask)
+    c_db = psnr(ctl["rgbs"], ref["rgbs"], fg_mask)
+    if not p_db >= FUSED_PSNR_MIN_DB:
+        raise AssertionError(f"render views: kernel vs plain {p_db:.2f} dB")
+
+    frame_ms, images = {}, {"fused": rgbs}
+    for mode in modes:
+        render(mode)                                      # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = render(mode)
+        torch.cuda.synchronize()
+        frame_ms[mode] = 1e3 * (time.perf_counter() - t0) / n
+        images[mode] = res["rgbs"]
+    from apnerf_torch.render.metrics import lpips_metric_name
+    print(f"render views: {n} views of {H}x{W} in {CHUNK}-ray chunks through "
+          f"render_viewpoints, fused_agg: launches {launches}, foreground "
+          f"{fg:.3f}, kernel vs plain {p_db:.2f} dB on the foreground (gate "
+          f"{FUSED_PSNR_MIN_DB:g}; control render {c_db:.2f} dB); whole "
+          f"images vs the plain render: psnr "
+          f"{[round(x, 2) for x in out['psnrs']]}, ssim "
+          f"{[round(x, 6) for x in out['ssims']]}, {lpips_metric_name('alex')}"
+          f" {[float(f'{x:.3g}') for x in out['lpips_alex']]}; fused vs "
+          f"shared {psnr(images['fused'], images['shared']):.2f} dB, shared "
+          f"vs exact {psnr(images['shared'], images['exact']):.2f} dB; "
+          f"ms/frame (readback included, mean of {n} views after a warm-up "
+          f"pass; {nvidia_smi_line()}): "
+          f"{ {k: round(v, 1) for k, v in frame_ms.items()} }", flush=True)
+
+    # ---- at a smaller depth: the direct point-cloud render
+    model.cfg = modes["shared"]
+    kernels.reset_launches()
+    direct = render_viewpoints(
+        make_points_renderer(model, state, near, far, bg,
+                             render_weights=False, render_pcd_direct=True),
+        poses[:1], HW[:1], Ks[:1], times[:1], render_factor=2, chunk=CHUNK,
+        verbose=False)["rgbs"]
+    d_fg = float(((1.0 - direct.min(-1)) > 1e-3).mean())
+    if direct.shape != (1, H // 2, W // 2, 3) \
+            or not np.isfinite(direct).all() or d_fg < 0.01:
+        raise AssertionError(f"render views: direct render {direct.shape}, "
+                             f"foreground {d_fg:.4f}")
+    print(f"render views direct: render_pcd_direct view of {H // 2}x"
+          f"{W // 2}, foreground {d_fg:.3f}, launches "
+          f"{dict(kernels.LAUNCHES)}", flush=True)
+
+    # ---- simplify_skeleton, then a repose with LBS-weight images
+    # (random weights move every joint a little: the threshold is the median
+    # joint's largest angle, so that about half the joints count as static)
+    from apnerf_torch.models import point_warper
+    from apnerf_torch.ops import encoding
+    train_times = np.linspace(0.0, 1.0, 20)
+    with torch.no_grad():
+        t_emb = encoding.poc_fre(
+            torch.tensor(train_times, dtype=torch.float32,
+                         device=DEVICE).reshape(-1, 1),
+            encoding.poc_freqs(base.timebase_pe, DEVICE))
+        angles = point_warper.transform_params(
+            model.forward_warp, t_emb)[:, :base.n_joints, -1]
+        thr = float(torch.rad2deg(angles.abs().amax(0)).median())
+    new_state, info = tp.simplify_skeleton(
+        model, state, train_times, deg_threshold=thr,
+        five_percent_heuristic=True)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rep = cli.repose(model, new_state, data, near, far, bg, seed=0,
+                     render_factor=4, chunk=CHUNK, verbose=False)
+    torch.cuda.synchronize()
+    rep_s = time.perf_counter() - t0
+    if rep["rgbs"].shape != (60, H // 4, W // 4, 3) \
+            or rep["weights"].shape != rep["rgbs"].shape \
+            or not np.isfinite(rep["rgbs"]).all() \
+            or not np.isfinite(rep["weights"]).all():
+        raise AssertionError(f"render views: repose {rep['rgbs'].shape}, "
+                             f"{rep['weights'].shape}")
+    moved = float(np.abs(rep["depths"][29] - rep["depths"][0]).max())
+    if not moved > 0:
+        raise AssertionError("render views: the repose moved nothing")
+    print(f"render views repose: simplify_skeleton at {thr:.2f} degrees "
+          f"pruned "
+          f"{int(info['prune_bones'].sum())} of "
+          f"{len(info['prune_bones'])} joints, {len(info['new_bones'])} "
+          f"bones left; repose 60 frames of {H // 4}x{W // 4} with "
+          f"LBS-weight images in {rep_s:.1f} s, max depth change "
+          f"{moved:.1f} steps, launches {dict(kernels.LAUNCHES)}",
+          flush=True)
+
+    # ---- one view of the stage-1 backbone
+    d = stage1_data
+    back = render_viewpoints(
+        make_backbone_renderer(stage1_model, stepsize, d["near"], d["far"],
+                               1.0),
+        d["poses"][:1], d["HW"][:1], d["Ks"][:1], d["times"][:1],
+        gt_imgs=d["images"][:1], render_factor=0, eval_psnr=True,
+        chunk=CHUNK, verbose=False)
+    if back["rgbs"].shape != (1, H, W, 3) \
+            or not np.isfinite(back["rgbs"]).all() \
+            or not np.isfinite(back["depths"]).all():
+        raise AssertionError(f"render views: backbone {back['rgbs'].shape}")
+    print(f"render views backbone: make_backbone_renderer view of {H}x{W} "
+          f"of the stage-1 model after {TRAIN_STEPS} steps, psnr vs its "
+          f"training image {back['psnrs'][0]:.2f} dB", flush=True)
+    return {"agg": launches["agg"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -588,15 +925,14 @@ def main() -> int:
               f"registers a thread, {spills} bytes of spills", flush=True)
 
     pcd, joints, bones, feat = bench_scene()
-    report = {}
+    report = Report()
     phase_kernels(torch, pcd, report)
     with tempfile.TemporaryDirectory() as d:
-        launches = phase_train(torch, d)
+        launches, s1_model, s1_data, stepsize = phase_train(torch, d)
         launches.update(phase_render(torch, pcd, joints, bones, feat, d))
+        launches.update(phase_views(torch, d, s1_model, s1_data, stepsize))
 
-    print(json.dumps({"kernels": [
-        dict(name=n, route="cuda", source=src, replaces=rep,
-             launches=launches[n], **report[n]) for n, src, rep in KERNELS]}))
+    print(json.dumps({"kernels": report.json_rows(launches)}))
     print(f"nvidia-smi: {nvidia_smi_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -36,7 +36,7 @@ def _jax_save(path, s):
 def test_jax_checkpoint_renders_in_port(tmp_path, scene):
     path = tmp_path / "temporalpoints_last.pkl"
     _jax_save(path, scene)
-    model, state = tck.load_temporalpoints(str(path))
+    model, state = tck.load_temporalpoints(str(path), device="cpu")
     assert model.cfg == ttp.TemporalPointsConfig(**BASE)
     ref_model, ref_state = port_model({}, scene)
     for k, v in ref_model.state_dict().items():
@@ -53,7 +53,7 @@ def test_port_writer_round_trips(tmp_path, scene):
     model, state = port_model({}, scene)
     path = tmp_path / "port.pkl"
     tck.save_temporalpoints(str(path), model, state)
-    back, bstate = tck.load_temporalpoints(str(path))
+    back, bstate = tck.load_temporalpoints(str(path), device="cpu")
     assert back.cfg == model.cfg
     for k, v in model.state_dict().items():
         assert torch.equal(back.state_dict()[k], v), k
@@ -71,7 +71,9 @@ def test_port_writer_round_trips(tmp_path, scene):
 
 
 def test_port_imports_no_jax(tmp_path, scene):
-    """Every apnerf_torch module, then init_params, load_temporalpoints
+    """Every apnerf_torch module, then init_params, load_temporalpoints,
+    the render entry points (simplify_skeleton, make_points_renderer with
+    fused_agg through render_viewpoints with every metric, repose, LPIPS)
     and two stage-1 training steps on a tiny scene (the second on the
     occupancy path), in a fresh interpreter: neither jax nor the JAX
     package (apnerf) ever enters sys.modules (conftest imports jax
@@ -88,13 +90,42 @@ def test_port_imports_no_jax(tmp_path, scene):
         "    importlib.import_module(m.name)\n"
         "from apnerf_torch.models import temporal_points as tp\n"
         "from apnerf_torch.utils.checkpoint import load_temporalpoints\n"
-        f"model, state = load_temporalpoints({str(path)!r})\n"
+        f"model, state = load_temporalpoints({str(path)!r}, device='cpu')\n"
         "assert state['nn_i'].shape == (2000, 8)\n"
         "tp.init_params(model.cfg, state['canonical_pcd'].numpy(),\n"
         "               state['original_joints'].numpy(), state['bones'],\n"
         "               model.canonical_feat.detach().numpy(),\n"
         "               np.zeros(2000), np.zeros((2000, 3)), [17, 32, 16],\n"
-        "               torch.Generator().manual_seed(0))\n"
+        "               torch.Generator().manual_seed(0), device='cpu')\n"
+        "from apnerf_torch import cli\n"
+        "from apnerf_torch.render import lpips\n"
+        "from apnerf_torch.render.render import render_viewpoints\n"
+        "from apnerf_torch.render.renderers import make_points_renderer\n"
+        "model.cfg = cli.points_render_config(model.cfg, {\n"
+        "    'pcd_model_and_render': dict(knn_share=8, knn_cand=8,\n"
+        "                                 fused_agg=True)})\n"
+        "state, info = tp.simplify_skeleton(model, state,\n"
+        "                                   np.linspace(0, 1, 5))\n"
+        "assert info['prune_bones'].shape == (6,)\n"
+        "pose = np.eye(4, dtype=np.float32); pose[2, 3] = 3.0\n"
+        "data = dict(poses=pose[None], HW=np.array([[12, 16]]),\n"
+        "            Ks=np.array([[[140., 0, 8], [0, 140., 6], [0, 0, 1]]]))\n"
+        "view = make_points_renderer(model, state, 0.5, 6.0, 1.0,\n"
+        "                            render_weights=False)\n"
+        "out = render_viewpoints(view, data['poses'], data['HW'],\n"
+        "                        data['Ks'], [0.5],\n"
+        "                        gt_imgs=np.zeros((1, 12, 16, 3)),\n"
+        "                        eval_psnr=True, eval_ssim=True, chunk=192,\n"
+        "                        verbose=False, device='cpu')\n"
+        "assert out['rgbs'].shape == (1, 12, 16, 3) and out['psnrs']\n"
+        "assert view(0, 0.5)(*torch.rand(3, 192, 3))['knn_path'] \\\n"
+        "    == 'shared_fused'\n"
+        "out = cli.repose(model, state, data, 0.5, 6.0, 1.0,\n"
+        "                 render_factor=4, chunk=12, verbose=False,\n"
+        "                 device='cpu')\n"
+        "assert out['rgbs'].shape == (60, 3, 4, 3)\n"
+        "a = np.random.default_rng(0).random((64, 64, 3))\n"
+        "assert lpips.lpips(a, 1 - a, 'alex', device='cpu') > 0\n"
         "from apnerf_torch.config import nerf_default\n"
         "from apnerf_torch.data.synthetic import make_scene\n"
         "from apnerf_torch.train.stage1 import scene_rep_reconstruction\n"

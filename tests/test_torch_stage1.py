@@ -265,7 +265,7 @@ def test_fine_last_across_packages(tmp_path):
     params = _tree_np(jt.init_params(jax.random.PRNGKey(5), jcfg))
     path = str(tmp_path / "fine_last.pkl")
     jck.save_checkpoint(path, jcfg.get_kwargs(), params)
-    model = tck.load_tineuvox(path)
+    model = tck.load_tineuvox(path, device="cpu")
     assert model.cfg == tt.TiNeuVoxConfig(**kw)
     want = tck.params_from_jax(params)
     assert set(model.state_dict()) == set(want)
