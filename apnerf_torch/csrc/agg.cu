@@ -12,161 +12,196 @@
 // every layer, bf16 round between layers) except that the last layer's
 // output stays fp32. The MLP runs on all kc candidates; the losers get
 // weight 0. Invalid candidates arrive at the 2e9 sentinel position: they
-// rank last, and their rows stay finite (sinf/cosf reduce any finite
+// rank last, and their rows stay finite (sincosf reduces any finite
 // argument), so 0 * row is 0.
 // Bound on the H100: at the bench shape (4480 subgroups x 16 members x 8
 // candidates = 573,440 MLP rows, F = 128) 84 GFLOP of bf16 tensor-core work
-// against ~12 MB of candidate rows in and ~37 MB of features out: the
-// tensor cores bound it, as long as nothing but h and kd2 leaves the chip.
-// Design: the flat member index g = s * share + m; a block of 8 warps takes
-// kRows / kc whole members (16 at kc = 8: one subgroup; 10 at kc = 12, 8 of
-// the 128 rows idle), one row per (member, candidate). One thread per row
-// forms to_nn and rc, then its rank among the member's kc distances held in
-// shared memory; one thread per member normalises the weights and writes
-// kd2. The rows' layer-1 operands are built in shared memory and go through
-// the chain of featmlp_chain.cuh (shared with K4); the fp32 result is
-// reduced over each member's candidates and written as h[g]. The ragged
-// last block is bound-checked, nothing is padded. wgmma/TMA come later.
+// (0.085 ms at the peak) against 49 MB of operands and results: the tensor
+// cores bound it, as long as nothing but h and kd2 leaves the SM.
+// Design: the persistent wgmma chain of featmlp_chain.cuh (shared with K4,
+// featmlp.cu); K6 is its front end. With the flat member index g = s * share
+// + m, a warpgroup's 64-row tile holds 64 / kc whole members (8 at kc = 8:
+// half a subgroup; 5 at kc = 12, 4 rows idle), one row per (member,
+// candidate); a member of more than 64 candidates takes two passes. A step
+// ahead, under the current tile's products, the warpgroup stages the
+// candidates of the tile's subgroups (position and rotation, 12 floats),
+// each once, in shared memory with coalesced asynchronous copies; one
+// thread per row forms to_nn and rc from there, ranks the row among its
+// member's distances and normalises its weight, and a member's first row
+// writes kd2. The feature half of a row's
+// layer-1 operand is the candidate's feature row, loaded straight into the
+// A fragments like K4's (the 8 or 16 members of a subgroup re-read it from
+// L1 / L2). The fp32 result of the last layer is reduced over each member's
+// candidates in registers (kc = 8) or through the chain's shared tile. The
+// ragged last tile is bound-checked, nothing is padded.
 #include "featmlp_chain.cuh"
 
 using namespace featmlp;
 
 namespace {
 
-size_t agg_smem_bytes(int F, int P_pad) {
-  // the chain's A, W, C, then rc [kRows, 3], to_nn [kRows], w [kRows] fp32
-  // and the top flags [kRows]
-  return chain_smem_bytes(F, P_pad) + kRows * 5 * sizeof(float) + kRows;
-}
+struct SubgroupFront {
+  const float* __restrict__ q;
+  const float* __restrict__ nbr;
+  const float* __restrict__ rot;
+  const bf16* __restrict__ feat;
+  float* __restrict__ out;
+  float* __restrict__ kd2;
+  int share;
+  int K;
+  float eps;
+  float inv_share;
+  static constexpr bool kRoundLast = false;
 
-template <int F>
-__global__ void __launch_bounds__(kThreads) agg_kernel(
-    const float* __restrict__ q, const float* __restrict__ nbr,
-    const float* __restrict__ rot, const bf16* __restrict__ feat,
-    const bf16* __restrict__ w1, const float* __restrict__ b1,
-    const bf16* __restrict__ wl, const float* __restrict__ bl, int n_members,
-    int share, int kc, int K, float eps, int n_pe, int P_pad, int n_layers,
-    float* __restrict__ h, float* __restrict__ kd2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int kd1 = P_pad + F;
-  bf16* A = reinterpret_cast<bf16*>(smem);
-  bf16* W = A + kRows * kd1;
-  float* C = reinterpret_cast<float*>(W + kd1 * F);
-  float* rc = C + kRows * F;
-  float* tn = rc + kRows * 3;
-  float* wt = tn + kRows;
-  unsigned char* top = reinterpret_cast<unsigned char*>(wt + kRows);
-  const int mpb = kRows / kc;               // members per block
-  const int g0 = blockIdx.x * mpb;
-  const int live = min(mpb, n_members - g0) * kc;   // rows in use
-
-  // ---- distances and canonical-frame offsets, one thread per row
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    float t = 0.f, x0 = 0.f, x1 = 0.f, x2 = 0.f;
-    if (r < live) {
-      const int ml = r / kc;
-      const int g = g0 + ml;
-      const size_t cand = (size_t)(g / share) * kc + (r - ml * kc);
-      const float dx = q[(size_t)g * 3 + 0] - nbr[cand * 3 + 0];
-      const float dy = q[(size_t)g * 3 + 1] - nbr[cand * 3 + 1];
-      const float dz = q[(size_t)g * 3 + 2] - nbr[cand * 3 + 2];
-      t = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                    __fmul_rn(dz, dz));
-      const float* R = rot + cand * 9;
-      x0 = R[0] * dx + R[1] * dy + R[2] * dz;
-      x1 = R[3] * dx + R[4] * dy + R[5] * dz;
-      x2 = R[6] * dx + R[7] * dy + R[8] * dz;
-    }
-    tn[r] = t;
-    rc[3 * r + 0] = x0;
-    rc[3 * r + 1] = x1;
-    rc[3 * r + 2] = x2;
+  // The subgroup of the tile's member ml without a division per row: one
+  // for the tile's first member, then a small quotient in floating point
+  // (exact: the numerator stays under share + 64).
+  struct Ctx {
+    int sub0, rem0;
+  };
+  __device__ __forceinline__ Ctx ctx(const Rows&, int g0) const {
+    const int sub0 = g0 / share;
+    return Ctx{sub0, g0 - sub0 * share};
   }
-  __syncthreads();
-
-  // ---- rank among the member's kc candidates; raw inverse-distance weight
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    float wr = 0.f;
-    unsigned char is_top = 0;
-    if (r < live) {
-      const int ml = r / kc;
-      const int k = r - ml * kc;
-      const float t = tn[r];
-      int rank = 0;
-      for (int j = 0; j < kc; ++j) {
-        const float tj = tn[ml * kc + j];
-        rank += (t > tj) || (t == tj && k > j);
-      }
-      is_top = rank < K;
-      if (is_top) wr = 1.0f / (t + eps);
-    }
-    wt[r] = wr;
-    top[r] = is_top;
-  }
-  __syncthreads();
-
-  // ---- per member: kth distance and weight normalisation
-  for (int ml = threadIdx.x; ml * kc < live; ml += kThreads) {
-    float sum = 0.f, kth = -3.4e38f;
-    for (int k = 0; k < kc; ++k) {
-      sum += wt[ml * kc + k];
-      if (top[ml * kc + k]) kth = fmaxf(kth, tn[ml * kc + k]);
-    }
-    const float den = fmaxf(sum, 1e-30f);
-    for (int k = 0; k < kc; ++k) wt[ml * kc + k] = wt[ml * kc + k] / den;
-    kd2[g0 + ml] = kth;
+  __device__ __forceinline__ long long feat_row(const Ctx& c, int ml, int k,
+                                                int kc) const {
+    const int n = c.rem0 + ml;
+    const int sub = c.sub0 + (share <= 1024
+                                  ? __float2int_rz(((float)n + 0.5f) * inv_share)
+                                  : n / share);
+    return (long long)sub * kc + k;
   }
 
-  // ---- layer-1 operand: [rc, sin(rc_a 2^i), cos(rc_a 2^i), 0 pad | feat]
-  for (int t = threadIdx.x; t < kRows * kd1; t += kThreads) {
-    const int r = t / kd1;
-    const int c = t - r * kd1;
-    bf16 v = __float2bfloat16(0.f);
-    if (r < live) {
-      if (c >= P_pad) {
-        const int ml = r / kc;
-        const size_t cand = (size_t)((g0 + ml) / share) * kc + (r - ml * kc);
-        v = feat[cand * F + (c - P_pad)];
+  // Slot s of the tile: the rows of pass 0, or (two passes) candidate s of
+  // the tile's one member.
+  __device__ __forceinline__ bool slot_member(const Rows& rows, int s, int g0,
+                                              int& ml, int& k) const {
+    if (rows.n_pass == 1) return row_member(rows, s, 0, g0, ml, k);
+    ml = 0;
+    k = s;
+    return s < rows.kc;
+  }
+
+  // Where the staged candidates of a step lie in the scratch: positions
+  // (3 floats a candidate) then rotations (9 floats), of the subgroups the
+  // tile's members belong to, in order: at most 128 candidates (mpt * kc <=
+  // 64 in one pass, kc <= 128 with one member in two).
+  static constexpr int kRotOffset = 3 * kMaxMemberRows;
+
+  // A step's inputs: the member position of the thread's row in registers;
+  // the candidates of the tile's subgroups, each once, by 4-byte cp.async
+  // with consecutive threads on consecutive floats (both arrays are
+  // contiguous over consecutive subgroups).
+  struct Pre {
+    float q[3];
+  };
+
+  __device__ __forceinline__ void fetch(Pre& p, Scratch& sc, const Rows& rows,
+                                        int g0, int pass, int t) const {
+    if (pass > 0) return;
+    const int sub0 = g0 / share;
+    const int g_last = min(g0 + rows.mpt, rows.n_members) - 1;
+    const int n_cand = (g_last / share - sub0 + 1) * rows.kc;
+    const float* nbr0 = nbr + (size_t)sub0 * rows.kc * 3;
+    const float* rot0 = rot + (size_t)sub0 * rows.kc * 9;
+    for (int i = t; i < n_cand * 12; i += kGroupThreads) {
+      const int j = i - n_cand * 3;
+      if (j < 0) {
+        cp_async4(smem_u32(sc.cand + i), nbr0 + i);
       } else {
-        v = pe_value(rc + 3 * r, c, n_pe);
+        cp_async4(smem_u32(sc.cand + kRotOffset + j), rot0 + j);
       }
     }
-    A[t] = v;
-  }
-
-  mlp_chain<F, false>(A, W, C, w1, b1, wl, bl, kd1, n_layers);
-  __syncthreads();
-
-  // ---- weighted reduction over each member's kc candidates
-  for (int t = threadIdx.x; t < mpb * F; t += kThreads) {
-    const int ml = t / F;
-    const int f = t - ml * F;
-    if (ml * kc >= live) continue;
-    float s = 0.f;
-    for (int k = 0; k < kc; ++k) {
-      s += C[(ml * kc + k) * F + f] * wt[ml * kc + k];
+    cp_async_commit();
+    const int n_slots = rows.n_pass == 1 ? kTileRows : kMaxMemberRows;
+    int ml, k;
+    p.q[0] = p.q[1] = p.q[2] = 0.f;
+    if (t < n_slots && slot_member(rows, t, g0, ml, k)) {
+      const size_t g = (size_t)(g0 + ml);
+      p.q[0] = q[g * 3 + 0];
+      p.q[1] = q[g * 3 + 1];
+      p.q[2] = q[g * 3 + 2];
     }
-    h[(size_t)(g0 + ml) * F + f] = s;
   }
-}
 
-template <int F>
-int launch(const float* q, const float* nbr, const float* rot,
-           const bf16* feat, const bf16* w1, const float* b1, const bf16* wl,
-           const float* bl, int n_members, int share, int kc, int K,
-           float eps, int n_pe, int P_pad, int n_layers, float* h, float* kd2,
-           cudaStream_t stream) {
-  const size_t smem = agg_smem_bytes(F, P_pad);
-  cudaError_t err = cudaFuncSetAttribute(
-      agg_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int mpb = kRows / kc;
-  const dim3 grid((n_members + mpb - 1) / mpb);
-  agg_kernel<F><<<grid, kThreads, smem, stream>>>(
-      q, nbr, rot, feat, w1, b1, wl, bl, n_members, share, kc, K, eps, n_pe,
-      P_pad, n_layers, h, kd2);
-  return (int)cudaGetLastError();
-}
+  __device__ __forceinline__ void prepare(RowData& rd, Scratch& sc,
+                                          const Pre& p, const Rows& rows,
+                                          int g0, int pass, int t,
+                                          int bar) const {
+    if (pass > 0) return;      // pass 0 filled every slot of the member
+    const int kc = rows.kc;
+    const int n_slots = rows.n_pass == 1 ? kTileRows : kMaxMemberRows;
+
+    cp_async_wait_all();       // the candidates, started by fetch
+    named_barrier(bar, kGroupThreads);
+
+    // ---- distances and canonical-frame offsets, one thread per slot
+    int ml = 0, k = 0;
+    const bool live = t < n_slots && slot_member(rows, t, g0, ml, k);
+    float tn = 0.f;
+    if (t < n_slots) {
+      float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+      if (live) {
+        const Ctx c = ctx(rows, g0);
+        const int lc = (int)(feat_row(c, ml, k, kc) - (long long)c.sub0 * kc);
+        const float* cn = sc.cand + 3 * lc;
+        const float* cr = sc.cand + kRotOffset + 9 * lc;
+        const float dx = p.q[0] - cn[0];
+        const float dy = p.q[1] - cn[1];
+        const float dz = p.q[2] - cn[2];
+        tn = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                       __fmul_rn(dz, dz));
+        x0 = cr[0] * dx + cr[1] * dy + cr[2] * dz;
+        x1 = cr[3] * dx + cr[4] * dy + cr[5] * dz;
+        x2 = cr[6] * dx + cr[7] * dy + cr[8] * dz;
+      }
+      sc.tn[t] = tn;
+      rd.x[3 * t + 0] = x0;
+      rd.x[3 * t + 1] = x1;
+      rd.x[3 * t + 2] = x2;
+    }
+    named_barrier(bar, kGroupThreads);
+
+    // ---- rank among the member's kc candidates; raw inverse-distance weight
+    const float* tm = sc.tn + ml * kc;
+    float wr = 0.f;
+    if (t < n_slots) {
+      unsigned char is_top = 0;
+      if (live) {
+        int rank = 0;
+        for (int j = 0; j < kc; ++j) {
+          const float tj = tm[j];
+          rank += (tn > tj) || (tn == tj && k > j);
+        }
+        is_top = rank < K;
+        if (is_top) wr = 1.0f / (tn + eps);
+      }
+      sc.wraw[t] = wr;
+      sc.top[t] = is_top;
+    }
+    named_barrier(bar, kGroupThreads);
+
+    // ---- every row normalises its own weight over its member's raw
+    // weights (summed in candidate order); the member's first row writes
+    // the kth distance
+    if (t < n_slots) {
+      float w = 0.f;
+      if (live) {
+        float sum = 0.f;
+        for (int j = 0; j < kc; ++j) sum += sc.wraw[ml * kc + j];
+        w = wr / fmaxf(sum, 1e-30f);
+        if (k == 0) {
+          float kth = -3.4e38f;
+          for (int j = 0; j < kc; ++j) {
+            if (sc.top[ml * kc + j]) kth = fmaxf(kth, tm[j]);
+          }
+          kd2[g0 + ml] = kth;
+        }
+      }
+      rd.wrow[t] = w;
+    }
+  }
+};
 
 }  // namespace
 
@@ -175,32 +210,33 @@ int launch(const float* q, const float* nbr, const float* rot,
 // featmlp_launch takes them, h [S*share, F] f32, kd2 [S*share] f32.
 // Needs 1 <= K <= kc <= 128, P_pad % 16 == 0, F in {32, 64, 128}.
 extern "C" int agg_launch(const void* q, const void* nbr, const void* rot,
-                          const void* feat, const void* w1, const void* b1,
-                          const void* wl, const void* bl, int S, int share,
-                          int kc, int K, float eps, int F, int n_pe,
-                          int P_pad, int n_layers, void* h, void* kd2,
-                          void* stream) {
+                          const void* feat, const void* image, const void* b1,
+                          const void* bl, int S, int share, int kc, int K,
+                          float eps, int F, int n_pe, int P_pad, int n_layers,
+                          void* h, void* kd2, void* stream) {
   if (S <= 0) return 0;
-  if (share < 1 || K < 1 || kc < K || kc > kRows || P_pad % 16 != 0 ||
-      n_layers < 1) {
+  if (share < 1 || K < 1 || kc < K || kc > kMaxMemberRows ||
+      P_pad % 16 != 0 || P_pad < 3 * (1 + 2 * n_pe) || n_layers < 1) {
     return (int)cudaErrorInvalidValue;
   }
   auto s = static_cast<cudaStream_t>(stream);
-  const auto* qq = static_cast<const float*>(q);
-  const auto* nb = static_cast<const float*>(nbr);
-  const auto* ro = static_cast<const float*>(rot);
-  const auto* fe = static_cast<const bf16*>(feat);
-  const auto* a1 = static_cast<const bf16*>(w1);
+  const SubgroupFront front{static_cast<const float*>(q),
+                            static_cast<const float*>(nbr),
+                            static_cast<const float*>(rot),
+                            static_cast<const bf16*>(feat),
+                            static_cast<float*>(h),
+                            static_cast<float*>(kd2),
+                            share,
+                            K,
+                            eps,
+                            1.0f / (float)share};
+  const Rows rows = make_rows(S * share, kc);
   const auto* c1 = static_cast<const float*>(b1);
-  const auto* al = static_cast<const bf16*>(wl);
   const auto* cl = static_cast<const float*>(bl);
-  auto* ho = static_cast<float*>(h);
-  auto* ko = static_cast<float*>(kd2);
-  const int n = S * share;
   switch (F) {
-    case 32: return launch<32>(qq, nb, ro, fe, a1, c1, al, cl, n, share, kc, K, eps, n_pe, P_pad, n_layers, ho, ko, s);
-    case 64: return launch<64>(qq, nb, ro, fe, a1, c1, al, cl, n, share, kc, K, eps, n_pe, P_pad, n_layers, ho, ko, s);
-    case 128: return launch<128>(qq, nb, ro, fe, a1, c1, al, cl, n, share, kc, K, eps, n_pe, P_pad, n_layers, ho, ko, s);
+    case 32: return launch_chain<32>(front, rows, n_pe, P_pad, n_layers, image, c1, cl, s);
+    case 64: return launch_chain<64>(front, rows, n_pe, P_pad, n_layers, image, c1, cl, s);
+    case 128: return launch_chain<128>(front, rows, n_pe, P_pad, n_layers, image, c1, cl, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -25,7 +25,8 @@ from typing import Tuple
 import torch
 
 from . import LAUNCHES, check, on_cpu, raise_on_error, stream_handle
-from .featmlp import ROWS, WIDTHS, FeatMLPWeights, featmlp_plain
+from .featmlp import (ROWS, WIDTHS, FeatMLPWeights, check_chain,
+                      featmlp_plain)
 
 KD2_FLOOR = -3.4e38     # kd2 of a member none of whose candidates is top
 
@@ -76,7 +77,7 @@ def fused_subgroup_agg_plain(q_sub, nbr, rot, feat, wts: FeatMLPWeights,
 def fused_subgroup_agg_cuda(q_sub, nbr, rot, feat, wts: FeatMLPWeights,
                             K: int, eps: float):
     """Launch K6 on the inputs' CUDA device."""
-    w1, b1, wl, bl, n_pe, P_pad = wts
+    w1, b1, wl, bl, n_pe, P_pad, image = wts
     S, share, _ = q_sub.shape
     kc, F = feat.shape[1], feat.shape[2]
     L = wl.shape[0] + 1
@@ -84,6 +85,7 @@ def fused_subgroup_agg_cuda(q_sub, nbr, rot, feat, wts: FeatMLPWeights,
             or S * share >= 2 ** 31 // max(F, kc)):
         raise ValueError(f"fused_subgroup_agg: unsupported F={F}, K={K}, "
                          f"kc={kc}, P_pad={P_pad}, S={S}, share={share}")
+    check_chain(wts, F, "fused_subgroup_agg")
     check(q_sub, "q_sub", torch.float32, (S, share, 3))
     check(nbr, "nbr", torch.float32, (S, kc, 3))
     check(rot, "rot", torch.float32, (S, kc, 9))
@@ -99,8 +101,8 @@ def fused_subgroup_agg_cuda(q_sub, nbr, rot, feat, wts: FeatMLPWeights,
     LAUNCHES["agg"] += 1
     raise_on_error(lib.agg_launch(
         q_sub.data_ptr(), nbr.data_ptr(), rot.data_ptr(), feat.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), wl.data_ptr(), bl.data_ptr(), S, share,
-        kc, K, float(eps), F, n_pe, P_pad, L, h.data_ptr(), kd2.data_ptr(),
+        image.data_ptr(), b1.data_ptr(), bl.data_ptr(), S, share, kc, K,
+        float(eps), F, n_pe, P_pad, L, h.data_ptr(), kd2.data_ptr(),
         stream_handle(q_sub)), "fused_subgroup_agg")
     return h, kd2
 

@@ -32,15 +32,16 @@ SIGNATURES = {
     # q, M, pts_t, T, pts_per_tile, tile_list, tile_cnt, r2, k,
     # out_d2, out_idx, stream
     "knn_radius_launch": [P, I, P, I, I, P, P, F, I, P, P, P],
-    # rel, feat, w, w1, b1, wl, bl, M, K, F, n_pe, P_pad, n_layers, out,
+    # rel, feat, w, image, b1, bl, M, K, F, n_pe, P_pad, n_layers, out,
     # stream
-    "featmlp_launch": [P, P, P, P, P, P, P, I, I, I, I, I, I, P, P],
+    "featmlp_launch": [P, P, P, P, P, P, I, I, I, I, I, I, P, P],
+    # F, P_pad, n_layers, resident (out), smem_bytes (out); 0 when refused
+    "featmlp_plan": [I, I, I, P, P],
     # idx, upd, M, C, n_rows, transposed, offs, out, stream
     "scatter_launch": [P, P, I, I, I, I, P, P, P],
-    # q, nbr, rot, feat, w1, b1, wl, bl, S, share, kc, K, eps, F, n_pe,
+    # q, nbr, rot, feat, image, b1, bl, S, share, kc, K, eps, F, n_pe,
     # P_pad, n_layers, h, kd2, stream
-    "agg_launch": [P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, I, P, P,
-                   P],
+    "agg_launch": [P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, I, P, P, P],
 }
 
 _lib = None

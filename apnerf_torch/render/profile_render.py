@@ -1,0 +1,131 @@
+"""Where the time of a rendered frame goes, on one GPU.
+
+    python -m apnerf_torch.render.profile_render [--views 3] [--trace DIR]
+
+Renders the bench scene (10^4 points, 24 joints, F = 128, K = 8, random
+weights from a seed) at 400 x 400 in 8192-ray chunks through
+``make_points_renderer`` + ``render_viewpoints`` in the three k-NN modes
+(exact, shared, fused), ``--views`` views each after a warm-up pass, under
+``torch.profiler``: the window's wall time, the device's busy and idle
+share (the union of the kernels' intervals), the share of device time of
+the hand-written kernels (K2 / K3 the k-NN, K4 ``featmlp``, K6 ``agg``),
+and the kernels that take the most device time. ``--trace`` also writes
+the Chrome traces there.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from ..train.profile_stage1 import _kernel_intervals, _union_us
+
+H = W = 400
+FOCAL = 555.0
+CHUNK = 8192
+# substrings of the hand-written kernels' names (csrc/*.cu)
+OWN = {"K4 featmlp": ("RowFront",), "K6 agg": ("SubgroupFront",),
+       "K2 knn_count": ("knn_count",), "K3 knn_radius": ("knn_radius",)}
+
+
+def _group(name: str) -> str:
+    for group, marks in OWN.items():
+        if any(m in name for m in marks):
+            return group
+    return "other"
+
+
+def cameras(n):
+    """``n`` cameras on an arc about the cloud at distance 3, times over
+    the whole motion (the views of ``chip_smoke.py``'s phase 6)."""
+    poses = np.repeat(np.eye(4, dtype=np.float32)[None], n, 0)
+    for i, a in enumerate(np.linspace(-0.3, 0.3, n)):
+        poses[i, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                            [-np.sin(a), 0, np.cos(a)]]
+        poses[i, :3, 3] = [3.0 * np.sin(a), 0.0, 3.0 * np.cos(a)]
+    Ks = np.repeat(np.array([[FOCAL, 0, W / 2], [0, FOCAL, H / 2],
+                             [0, 0, 1]], np.float32)[None], n, 0)
+    return poses, Ks, np.array([[H, W]] * n), \
+        np.linspace(0.0, 1.0, n).astype(np.float32)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--views", type=int, default=3)
+    p.add_argument("--trace", default="")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_render: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from .. import cli, kernels
+    from ..data.bench_scene import bench_model
+    from .render import render_viewpoints
+    from .renderers import make_points_renderer
+
+    model, state = bench_model()
+    base = model.cfg
+    shared = dict(knn_share=16, knn_cand=8, coarse_stride=32)
+    modes = {mode: cli.points_render_config(
+        base, {"pcd_model_and_render": over}) for mode, over in (
+            ("exact", dict(render_exact=True)),
+            ("shared", dict(shared, fused_agg=False)),
+            ("fused", dict(shared, fused_agg=True)))}
+    poses, Ks, HW, times = cameras(args.views)
+
+    def render(mode):
+        model.cfg = modes[mode]
+        view = make_points_renderer(model, state, 0.5, 6.0, 1.0,
+                                    render_weights=False)
+        return render_viewpoints(view, poses, HW, Ks, times, chunk=CHUNK,
+                                 verbose=False)
+
+    for mode in modes:
+        render(mode)                                      # warm-up, build
+        kernels.reset_launches()
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        torch.cuda.synchronize()
+        prof.start()
+        t0 = time.perf_counter()
+        render(mode)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+        prof.stop()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        ivals = _kernel_intervals(prof)
+        busy = _union_us(ivals)
+        by_group, by_name, count = (defaultdict(float), defaultdict(float),
+                                    defaultdict(int))
+        for name, s, e in ivals:
+            by_group[_group(name)] += e - s
+            by_name[name] += e - s
+            count[name] += 1
+        dev_total = sum(by_group.values())
+        n = args.views
+        print(f"profile_render {mode}: {n} views of {H}x{W}, "
+              f"{torch.cuda.get_device_name(0)}: {window_us / 1e3 / n:.1f} "
+              f"ms/frame under the profiler, device busy "
+              f"{busy / 1e3 / n:.1f} ms/frame, idle share "
+              f"{1 - busy / window_us:.3f}, {len(ivals) // n} kernels a "
+              f"frame, launches {launches}")
+        for g, t in sorted(by_group.items(), key=lambda x: -x[1]):
+            print(f"profile_render {mode}: group {g}: {t / 1e3 / n:.2f} "
+                  f"ms/frame ({t / dev_total:.3f} of device time)")
+        for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
+            print(f"profile_render {mode}: kernel {t / 1e3 / n:7.2f} "
+                  f"ms/frame in {count[name] // n:5d} launches  "
+                  f"{name[:100]}")
+        if args.trace:
+            os.makedirs(args.trace, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                args.trace, f"render_{mode}_trace.json"))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -9,7 +9,8 @@ and no result line is printed):
 1. device  -- needs CUDA; prints the card and its nvidia-smi name and
    power limit; TF32 off for the fp32 plain versions.
 2. build   -- compiles ``apnerf_torch/csrc/*.cu`` for sm_90a, one nvcc per
-   source in parallel.
+   source in parallel; K4's and K6's kernels must hold wgmma instructions
+   (HGMMA in the library's SASS, read with the toolkit's ``cuobjdump``).
 3. kernel  -- each kernel against its plain PyTorch version at its main
    path's shapes (K1-K3 exactly equal, K4's max and mean abs error under
    ``K4_MAX_ABS_ERR`` / ``K4_MEAN_ABS_ERR``, printed beside a control
@@ -23,9 +24,14 @@ and no result line is printed):
    (4480 subgroups of 16 members, 8 candidates) and with 12 candidates,
    ~10% of the slots invalid: ``kd2`` bit-equal, ``h`` finite and under
    ``K6_MAX_ABS_ERR`` / ``K6_MEAN_ABS_ERR``, beside the same control as
-   K4's. Every kernel's time stands beside its bound: the larger of its
-   bytes over the card's memory rate and its operations over the card's
-   peak for their type.
+   K4's. K4 and K6 also at the shapes a persistent, tiled kernel gets
+   wrong first (ragged row counts, fewer rows than a tile, F = 64 and 32,
+   1 to 7 layers, a pose embedding, members of 1 to 128 rows, share 8,
+   1 / 12 / 16 / 100 candidates), under the same gates, and the wrapper's
+   shared-memory rule against the kernel's. Every kernel's time stands
+   beside its bound: the larger of its bytes over the card's memory rate
+   and its operations over the card's peak for their type; K4's and K6's
+   also beside the time of the WMMA kernels they replace.
 4. train   -- stage 1 of the nerf family at full width (160^3 x 12 grid,
    defor_depth 5, net_width 128, 4096 rays a step) on a 6-view 400 x 400
    arm scene, ``scene_rep_reconstruction`` for ``TRAIN_STEPS`` steps with
@@ -78,9 +84,13 @@ RADIUS = 0.01
 # Gates between the sound reading and a control (the plain K4 without its
 # per-layer bf16 round), both taken on an NVIDIA H100 80GB HBM3, 700 W:
 # K4 max abs error 3.0e-4 against the control's 4.2e-4; K4 mean abs error
-# 1.17e-7 against the control's 2.02e-5 (the gate is near their geometric
-# mean); foreground render PSNR 160.3 / 161.0 dB (exact / shared) against
-# the control render's 143.9 / 144.7 dB.
+# 8.4e-8 (the wgmma chain; 1.17e-7 for the WMMA kernel before it) against
+# the control's 2.02e-5 (the gate is near their geometric mean); foreground
+# render PSNR 160.3 / 161.0 dB (exact / shared) against the control
+# render's 143.9 / 144.7 dB. The max is one bf16 step of the last layer's
+# round times the heaviest neighbour's weight and depends on the draw (on
+# four other draws of the same shape: 2.7e-4 to 4.5e-4); the mean is what
+# tells a kernel that skips a round from a sound one.
 K4_MAX_ABS_ERR = 3.6e-4
 K4_MEAN_ABS_ERR = 1.5e-6
 PSNR_MIN_DB = 152.0
@@ -110,6 +120,21 @@ RENDER_KERNELS = ("knn_brute", "knn_count", "knn_radius", "featmlp")
 K6_MAX_ABS_ERR = 5e-4
 K6_MEAN_ABS_ERR = 1.8e-6
 FUSED_PSNR_MIN_DB = 155.0
+# The two absolute gates above belong to inputs whose |h| stays under 0.18.
+# With one candidate a member at weight 1 and the features 30 times larger
+# (max |h| 0.55), K6's error is held relative to max |h|: the max read
+# 1.9e-3 to 2.1e-3 of it, half of one bf16 step (the control 3.4e-3, so
+# again only a ceiling: one step, 2^-8), the mean 0.8e-6 to 1.1e-6 of it
+# against the control's 2.1e-4 to 2.3e-4 (the gate is near their geometric
+# mean).
+K6_REL_MAX_ERR = 2.0 ** -8
+K6_REL_MEAN_ERR = 1e-5
+# What the WMMA kernels that K4 / K6 replaced read at the bench shapes (K6
+# also with 12 candidates) on an NVIDIA H100 80GB HBM3, 700 W: printed
+# beside the wgmma chain's times.
+K4_EARLIER_MS = 4.461
+K6_EARLIER_MS = 4.077
+K6_EARLIER_KC12_MS = 6.483
 N_VIEWS = 3
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
 # memory bytes/s, bf16 tensor-core and fp32 non-tensor-core FLOP/s. A
@@ -140,6 +165,31 @@ def nvidia_smi_line() -> str:
     if res.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def count_wgmma(so) -> str:
+    """How many warpgroup matrix products (HGMMA in SASS) the built library
+    holds, by kernel family: K4's and K6's chain must be made of them."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+    if not tool.exists():
+        raise RuntimeError(f"{tool} not found: cannot show that K4 and K6 "
+                           "issue wgmma")
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = ("K4 (RowFront)" if "RowFront" in m.group(1) else
+                  "K6 (SubgroupFront)" if "SubgroupFront" in m.group(1)
+                  else "other kernels")
+        elif fn and "HGMMA" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    if not (counts.get("K4 (RowFront)") and counts.get("K6 (SubgroupFront)")):
+        raise AssertionError(f"build: no wgmma in K4 / K6: {counts}")
+    return "HGMMA (wgmma) instructions in the library's SASS: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(counts.items()))
 
 
 def nbytes(*tensors) -> int:
@@ -206,32 +256,6 @@ def cuda_ms(fn, reps=7):
     return statistics.median(times), out
 
 
-def bench_scene(P=10_000, J=24, F=128):
-    """bench.py:build_model's scene in numpy (points, joints, features)."""
-    rng = np.random.default_rng(0)
-    joints = np.zeros((J, 3), np.float32)
-    joints[:, 1] = np.linspace(-0.8, 0.8, J)
-    joints[:, 0] = 0.2 * np.sin(np.linspace(0, 3, J))
-    bones = [[j, j + 1] for j in range(J - 1)]
-    seg = rng.integers(0, J, P)
-    pcd = (joints[seg] + rng.normal(size=(P, 3)) * 0.08).astype(np.float32)
-    feat = rng.normal(size=(P, F)).astype(np.float32) * 0.1
-    return pcd, joints, bones, feat
-
-
-def bench_config(tp, P, J, F, **mode):
-    """bench.py:build_model's TemporalPointsConfig, k-NN mode overridden."""
-    base = dict(
-        n_points=P, n_joints=J, feat_dim=F, neighbours=8, timebase_pe=8,
-        posbase_pe=10, viewbase_pe=4, stepsize=0.5, voxel_size=0.012,
-        voxel_size_ratio=1.0, act_shift=float(np.log(1 / (1 - 1e-3) - 1)),
-        fast_color_thres=1e-4, sample_budget=96, max_steps=512,
-        knn_share=16, knn_cand=8, coarse_stride=32, active_fraction=0.30,
-        pass_fraction=0.30)
-    base.update(mode)
-    return tp.TemporalPointsConfig(**base)
-
-
 def featmlp_fp32_layers(rel, feat, w, wts):
     """Control for K4's gate: its plain version with the activations kept
     in fp32 between layers (no bf16 round after each layer) -- what a K4
@@ -239,7 +263,7 @@ def featmlp_fp32_layers(rel, feat, w, wts):
     import torch
     from apnerf_torch.ops.encoding import poc_fre, poc_freqs
     from apnerf_torch.ops.nn import leaky_relu
-    w1, b1, wl, bl, n_pe, P_pad = wts
+    w1, b1, wl, bl, n_pe, P_pad = wts[:6]
     M, K, _ = rel.shape
     F = feat.shape[-1]
     e = poc_fre(rel.reshape(M * K, 3).float(), poc_freqs(n_pe, rel.device))
@@ -366,20 +390,41 @@ def phase_kernels(torch, pcd, report):
                    nbytes(q, tabs["pts_t"], d, i),
                    PAIR_FLOP * pairs_examined(q, r2), "fp32")
 
-    M, K, F, n_pe = 71680, 8, 128, 10
-    rel = (0.05 * torch.randn(M, K, 3, generator=g)).to(dev)
-    feat = (0.1 * torch.randn(M, K, F, generator=g)).to(dev, torch.bfloat16)
-    w = torch.rand(M, K, generator=g).to(dev)
-    w = w / w.sum(-1, keepdim=True)
-    dims = [3 * (1 + 2 * n_pe) + F] + [F] * 4
+    layers = phase_featmlp(torch, report, g)
+    phase_agg(torch, report, layers, g)
+    phase_chain_shapes(torch, g)
+    phase_scatter(torch, report)
+
+
+def random_layers(torch, g, F, n_pe, depth, pose_dim=0):
+    """``depth`` bf16 layers [(weight [dout, din], bias)] of a feat_net on
+    the card, uniform in +-1/sqrt(din) like ``torch.nn.Linear``."""
+    dims = [3 * (1 + 2 * n_pe) + F + pose_dim] + [F] * depth
     layers = []
     for din, dout in zip(dims[:-1], dims[1:]):
         bound = 1.0 / np.sqrt(din)
         layers.append((
             ((torch.rand(dout, din, generator=g) * 2 - 1) * bound).to(
-                dev, torch.bfloat16),
+                DEVICE, torch.bfloat16),
             ((torch.rand(dout, generator=g) * 2 - 1) * bound).to(
-                dev, torch.bfloat16)))
+                DEVICE, torch.bfloat16)))
+    return layers
+
+
+def featmlp_inputs(torch, g, M, K, F):
+    dev = torch.device(DEVICE)
+    rel = (0.05 * torch.randn(M, K, 3, generator=g)).to(dev)
+    feat = (0.1 * torch.randn(M, K, F, generator=g)).to(dev, torch.bfloat16)
+    w = torch.rand(M, K, generator=g).to(dev)
+    return rel, feat, w / w.sum(-1, keepdim=True)
+
+
+def phase_featmlp(torch, report, g, M=71680, K=8, F=128, n_pe=10):
+    """K4 at the bench shape; returns the feat_net layers (K6 reuses
+    them)."""
+    from apnerf_torch.kernels import featmlp as fm
+    rel, feat, w = featmlp_inputs(torch, g, M, K, F)
+    layers = random_layers(torch, g, F, n_pe, 4)
     wts = fm.pack_weights(layers, F, n_pe, None)
     ms, h = cuda_ms(lambda: fm.featmlp_agg(rel, feat, w, wts))
     pms, ph = cuda_ms(lambda: fm.featmlp_plain(rel, feat, w, wts))
@@ -394,12 +439,42 @@ def phase_kernels(torch, pcd, report):
             and mean <= K4_MEAN_ABS_ERR):
         raise AssertionError(f"featmlp differs: max err {err:g}, mean "
                              f"{mean:g}")
-    mlp_flop = 2 * (dims[0] * F + 3 * F * F)          # per MLP row
+    mlp_flop = 2 * ((3 * (1 + 2 * n_pe) + F) * F + 3 * F * F)  # per MLP row
     report.add("featmlp", f"M={M} K={K} F={F} depth 4", ms, pms, err,
                nbytes(rel, feat, w, wts.w1, wts.b1, wts.wl, wts.bl, h),
                M * K * mlp_flop, "bf16")
-    phase_agg(torch, report, layers, g)
-    phase_scatter(torch, report)
+    print_redesign(report, "featmlp", ms, K4_EARLIER_MS,
+                   lambda: fm.featmlp_agg(rel, feat, w, wts))
+    return layers
+
+
+def queued_ms(fn, launches=20, rounds=5):
+    """Median over ``rounds`` of the milliseconds a call of ``fn`` takes
+    when ``launches`` calls are queued back to back between two CUDA
+    events: the device's time, without the wrapper's host work that
+    ``cuda_ms`` includes when a kernel is as short as that work."""
+    import torch
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
+def print_redesign(report, name, ms, earlier_ms, fn):
+    bound = report.rows[name]["bound_ms"]
+    queued = queued_ms(fn)
+    print(f"kernel {name}: {ms:.3f} ms beside its bound {bound:.4f} ms "
+          f"({100 * bound / ms:.1f}% reached; {queued:.3f} ms a call when 20 "
+          f"calls are queued back to back, {100 * bound / queued:.1f}%); the "
+          f"WMMA kernel it replaces read {earlier_ms:.3f} ms at this shape "
+          f"({earlier_ms / ms:.1f}x)", flush=True)
 
 
 def phase_agg(torch, report, layers, g, S=4480, share=16, K=8, F=128,
@@ -408,18 +483,11 @@ def phase_agg(torch, report, layers, g, S=4480, share=16, K=8, F=128,
     subgroups of 16 members, 8 candidates) and with 12 candidates; ~10% of
     the candidate slots invalid (at the sentinel position)."""
     from apnerf_torch.kernels import agg as ag, featmlp as fm
-    dev = torch.device(DEVICE)
     wts = fm.pack_weights(layers, F, n_pe, None)
     mlp_flop = 2 * ((3 * (1 + 2 * n_pe) + F) * F + 3 * F * F)
     for kc in (8, 12):
-        q = (0.05 * torch.randn(S, share, 3, generator=g)).to(dev)
-        nbr = q[:, :1] + (0.05 * torch.randn(S, kc, 3, generator=g)).to(dev)
-        invalid = (torch.rand(S, kc, generator=g) < 0.1).to(dev)
-        nbr = torch.where(invalid[..., None], torch.full_like(nbr, 2e9), nbr)
-        rot = torch.randn(S, kc, 9, generator=g).to(dev)
-        feat = (0.1 * torch.randn(S, kc, F, generator=g)).to(
-            dev, torch.bfloat16)
-        args = (q, nbr.contiguous(), rot, feat, wts, K, 1e-6)
+        q, nbr, rot, feat = agg_inputs(torch, g, S, share, kc, F)
+        args = (q, nbr, rot, feat, wts, K, 1e-6)
         ms, (h, kd2) = cuda_ms(lambda: ag.fused_subgroup_agg(*args))
         pms, (ph, pkd2) = cuda_ms(lambda: ag.fused_subgroup_agg_plain(*args))
         ch, _ = agg_fp32_layers(*args)
@@ -444,6 +512,146 @@ def phase_agg(torch, report, layers, g, S=4480, share=16, K=8, F=128,
                        pms, err, nbytes(q, nbr, rot, feat, wts.w1, wts.b1,
                                         wts.wl, wts.bl, h, kd2),
                        S * share * kc * mlp_flop, "bf16")
+            print_redesign(report, "agg", ms, K6_EARLIER_MS,
+                           lambda: ag.fused_subgroup_agg(*args))
+        else:
+            print(f"kernel agg kc={kc}: {ms:.3f} ms; the WMMA kernel it "
+                  f"replaces read {K6_EARLIER_KC12_MS:.3f} ms", flush=True)
+
+
+def agg_inputs(torch, g, S, share, kc, F):
+    """K6's operands with ~10% of the candidate slots invalid (at the
+    sentinel position)."""
+    dev = torch.device(DEVICE)
+    q = (0.05 * torch.randn(S, share, 3, generator=g)).to(dev)
+    nbr = q[:, :1] + (0.05 * torch.randn(S, kc, 3, generator=g)).to(dev)
+    invalid = (torch.rand(S, kc, generator=g) < 0.1).to(dev)
+    nbr = torch.where(invalid[..., None], torch.full_like(nbr, 2e9), nbr)
+    rot = torch.randn(S, kc, 9, generator=g).to(dev)
+    feat = (0.1 * torch.randn(S, kc, F, generator=g)).to(dev, torch.bfloat16)
+    return q, nbr.contiguous(), rot, feat
+
+
+def agg_scaled_features(torch, args, kept, scale=30.0):
+    """K6 on ``args`` with the features ``scale`` times larger, so that
+    |h| leaves the range the absolute gates were set for: a bf16 step is
+    relative, so the error must follow max |h| (``K6_REL_MAX_ERR``,
+    ``K6_REL_MEAN_ERR``), as the control's does."""
+    from apnerf_torch.kernels import agg as ag
+    q, nbr, rot, feat, wts, K, eps = args
+    args = (q, nbr, rot, (feat.float() * scale).to(torch.bfloat16), wts, K,
+            eps)
+    h, kd2 = ag.fused_subgroup_agg(*args)
+    ph, pkd2 = ag.fused_subgroup_agg_plain(*args)
+    d = (h - ph).abs()[kept]
+    dc = (agg_fp32_layers(*args)[0] - ph).abs()[kept]
+    top = ph[kept].abs().max().item()
+    err, mean = d.max().item(), d.mean().item()
+    line = (f"the same with features x {scale:g}: max |h| {top:.3g}, max "
+            f"{err:.3g} ({err / top:.3g} of max |h|, gate "
+            f"{K6_REL_MAX_ERR:.3g}), mean {mean:.3g} ({mean / top:.3g}, gate "
+            f"{K6_REL_MEAN_ERR:g}); control without the per-layer bf16 "
+            f"round: max {dc.max().item() / top:.3g}, mean "
+            f"{dc.mean().item() / top:.3g} of max |h|")
+    if not (torch.equal(kd2, pkd2) and bool(torch.isfinite(h).all())
+            and err <= K6_REL_MAX_ERR * top
+            and mean <= K6_REL_MEAN_ERR * top):
+        raise AssertionError(f"agg differs: {line}")
+    return line
+
+
+def phase_chain_shapes(torch, g):
+    """The shapes a persistent, tiled chain gets wrong first, K4 and K6
+    against their plain versions under the gates of the bench shape (not
+    timed into the table): ragged row counts, fewer rows than one tile,
+    narrow and deep nets (5 or more layers at F = 128 are streamed), a pose
+    embedding, members of other sizes than 8 rows (the shared-tile
+    reduction; more than 64 rows take two passes). And the wrapper's
+    shared-memory rule against the kernel's own."""
+    import ctypes
+    from apnerf_torch.kernels import agg as ag, build, featmlp as fm
+    lib = build.load_library()
+    for F, P_pad, L in ((128, 64, 4), (128, 64, 5), (128, 64, 9),
+                        (64, 64, 2), (32, 32, 1), (32, 64, 4), (128, 80, 4),
+                        (128, 448, 2), (64, 1024, 2)):
+        res, smem = ctypes.c_int(0), ctypes.c_int(0)
+        ok = lib.featmlp_plan(F, P_pad, L, ctypes.byref(res),
+                              ctypes.byref(smem))
+        want = fm.chain_plan(F, P_pad, L)
+        got = dict(mode="refused" if not ok else
+                   "resident" if res.value == L else "streamed",
+                   resident=res.value, smem_bytes=smem.value)
+        if got != want:
+            raise AssertionError(f"chain_plan({F}, {P_pad}, {L}): {want}, "
+                                 f"the kernel's plan_chain: {got}")
+    lines = []
+    # M, K, F, n_pe, depth, pose_dim
+    for M, K, F, n_pe, depth, pd in (
+            (1003, 8, 128, 10, 4, 0),      # ragged: M K not a tile multiple
+            (5, 8, 128, 10, 4, 0),         # fewer rows than one tile
+            (3001, 8, 64, 10, 2, 0),       # narrow, 2 layers
+            (2000, 8, 128, 10, 5, 0),      # 5 layers: the last two streamed
+            (2000, 8, 128, 10, 7, 0),      # 7 layers: the last four streamed
+            (1500, 8, 128, 10, 4, 32),     # a pose embedding
+            (777, 4, 32, 4, 1, 0),         # one layer, F = 32, K = 4
+            (900, 8, 128, 12, 4, 0),       # two chunks of PE columns
+            (300, 16, 128, 10, 4, 0),      # two tile rows a member
+            (41, 128, 64, 6, 3, 0)):       # two passes a member
+        rel, feat, w = featmlp_inputs(torch, g, M, K, F)
+        layers = random_layers(torch, g, F, n_pe, depth, pd)
+        pose = None if not pd else (0.1 * torch.randn(pd, generator=g)).to(
+            DEVICE)
+        wts = fm.pack_weights(layers, F, n_pe, pose)
+        h = fm.featmlp_agg(rel, feat, w, wts)
+        d = (h - fm.featmlp_plain(rel, feat, w, wts)).abs()
+        err, mean = d.max().item(), d.mean().item()
+        lines.append(f"M={M} K={K} F={F} pe={n_pe} depth={depth} pose={pd} "
+                     f"({fm.chain_plan(F, wts.P_pad, depth)['mode']}): max "
+                     f"{err:.3g}, mean {mean:.3g}")
+        if not (bool(torch.isfinite(h).all()) and err <= K4_MAX_ABS_ERR
+                and mean <= K4_MEAN_ABS_ERR):
+            raise AssertionError(f"featmlp differs: {lines[-1]}")
+    print("kernel featmlp, other shapes (gates "
+          f"{K4_MAX_ABS_ERR:g} / {K4_MEAN_ABS_ERR:g}): " + "; ".join(lines),
+          flush=True)
+    lines = []
+    # S, share, kc, K, F, depth
+    for S, share, kc, K, F, depth in (
+            (1001, 16, 8, 8, 128, 4),      # ragged S
+            (3, 16, 8, 8, 128, 4),         # fewer rows than one block's tiles
+            (999, 8, 8, 8, 128, 4),        # share 8
+            (501, 16, 16, 8, 128, 4),      # kc 16
+            (333, 4, 12, 8, 64, 4),        # narrow, members across subgroups
+            (200, 16, 12, 8, 128, 6),      # 6 layers: the last three streamed
+            (37, 4, 100, 8, 32, 4),        # two passes a member
+            (2000, 4, 1, 1, 128, 4)):      # one row a member, at weight 1
+        layers = random_layers(torch, g, F, 10, depth)
+        wts = fm.pack_weights(layers, F, 10, None)
+        args = (*agg_inputs(torch, g, S, share, kc, F), wts, K, 1e-6)
+        h, kd2 = ag.fused_subgroup_agg(*args)
+        ph, pkd2 = ag.fused_subgroup_agg_plain(*args)
+        d = (h - ph).abs()
+        note = ""
+        if kc == 1:
+            # a member whose only candidate is invalid carries the sentinel
+            # row (|h| ~ 1e8) at weight 1; the render drops it by its kd2
+            kept = pkd2 < 1e17
+            d = d[kept]
+            note = (f" over the {kept.float().mean().item():.3f} of the "
+                    f"members with a valid candidate, max |h| "
+                    f"{ph[kept].abs().max().item():.3g}")
+        err, mean = d.max().item(), d.mean().item()
+        lines.append(f"S={S} share={share} kc={kc} K={K} F={F} depth={depth}"
+                     f": kd2 bit-equal {torch.equal(kd2, pkd2)}, max "
+                     f"{err:.3g}, mean {mean:.3g}{note}")
+        if not (torch.equal(kd2, pkd2) and bool(torch.isfinite(h).all())
+                and err <= K6_MAX_ABS_ERR and mean <= K6_MEAN_ABS_ERR):
+            raise AssertionError(f"agg differs: {lines[-1]}")
+        if kc == 1:
+            lines.append(agg_scaled_features(torch, args, kept))
+    print("kernel agg, other shapes (gates "
+          f"{K6_MAX_ABS_ERR:g} / {K6_MEAN_ABS_ERR:g}): " + "; ".join(lines),
+          flush=True)
 
 
 def scatter_inputs(torch, n_pad, M=1 << 20, C=96, seed=0):
@@ -628,13 +836,14 @@ def phase_train(torch, ckpt_dir):
 def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
     """Phase 4: save/load the bench model, render exact and shared."""
     from apnerf_torch import kernels
+    from apnerf_torch.data.bench_scene import bench_config
     from apnerf_torch.models import temporal_points as tp
     from apnerf_torch.render.renderers import render_view
     from apnerf_torch.utils.checkpoint import (load_temporalpoints,
                                                save_temporalpoints)
     P, J, F = pcd.shape[0], joints.shape[0], feat.shape[1]
     gen = torch.Generator().manual_seed(1)
-    cfg0 = bench_config(tp, P, J, F)
+    cfg0 = bench_config(P, J, F)
     model = tp.init_params(cfg0, pcd, joints, bones, feat,
                            np.full(P, 0.5, np.float32),
                            np.full((P, 3), 0.5, np.float32),
@@ -652,7 +861,7 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
                             sample_budget=96, max_steps=512)}
     images, launches = {}, {}
     for mode, over in modes.items():
-        model.cfg = bench_config(tp, P, J, F, **over)
+        model.cfg = bench_config(P, J, F, **over)
         path = os.path.join(ckpt_dir, f"temporalpoints_{mode}.pkl")
         save_temporalpoints(path, model, {
             "canonical_pcd": pcd, "skeleton_pcd": pcd[::40], "bones":
@@ -923,7 +1132,9 @@ def main() -> int:
         spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", text))
         print(f"build: {len(regs)} kernels, at most {max(regs, default=0)} "
               f"registers a thread, {spills} bytes of spills", flush=True)
+    print(f"build: {count_wgmma(so)}", flush=True)
 
+    from apnerf_torch.data.bench_scene import bench_scene
     pcd, joints, bones, feat = bench_scene()
     report = Report()
     phase_kernels(torch, pcd, report)

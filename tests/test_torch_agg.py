@@ -54,9 +54,10 @@ def run_port(q, nbr, rot, feat, fp):
         torch.tensor(feat).to(torch.bfloat16), port_weights(fp), K, EPS)
 
 
-@pytest.mark.parametrize("kc", [12, 8])
+@pytest.mark.parametrize("kc", [12, 8, 16])
 def test_agg_plain_vs_pallas(kc):
-    """kc > K (the rank mask selects) and kc == K (it still runs)."""
+    """kc > K (the rank mask selects; 12 leaves rows of a 64-row tile idle,
+    16 does not) and kc == K (it still runs)."""
     q, nbr, rot, feat, fp = inputs(kc)
     jh, jkd2 = jagg(jnp.asarray(q), jnp.asarray(nbr.transpose(1, 0, 2)),
                     jnp.asarray(rot.transpose(1, 0, 2)),
@@ -71,6 +72,41 @@ def test_agg_plain_vs_pallas(kc):
     ok = jkd2 < 1e17
     # at kc == K every invalid slot reaches the top-K: both kinds occur
     assert ok.any() and (kc > K or (~ok).any())
+    np.testing.assert_array_equal(kd2 > 1e17, ~ok)
+    np.testing.assert_allclose(kd2[ok], jkd2[ok], rtol=1e-6, atol=0)
+    assert np.isfinite(h).all()
+    np.testing.assert_allclose(h[ok], jh[ok], rtol=0, atol=H_ATOL)
+
+
+def test_agg_single_candidate_vs_pallas():
+    """kc = K = 1: one row a member at weight 1, so nothing averages a bf16
+    step away (the CUDA kernel reduces such members through its shared
+    tile, 64 members a tile). 2000 subgroups of 4, as ``chip_smoke.py``
+    runs it on the card; members whose only candidate is invalid carry the
+    sentinel row at weight 1 and are left out, as the render drops them.
+    Measured 5.6e-4 max abs on ``h`` (|h| up to 0.41) against the 1e-3
+    bound."""
+    n_sub = 2000
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(n_sub, SHARE, 3)).astype(np.float32) * 0.2
+    nbr = (q[:, :1] + rng.normal(size=(n_sub, 1, 3)).astype(np.float32)
+           * 0.1).astype(np.float32)
+    nbr[rng.uniform(size=(n_sub, 1)) < 0.15] = 2e9
+    rot = rng.normal(size=(n_sub, 1, 9)).astype(np.float32)
+    feat = rng.normal(size=(n_sub, 1, F)).astype(np.float32) * 0.3
+    fp = inputs(1)[4]
+    jh, jkd2 = jagg(jnp.asarray(q), jnp.asarray(nbr.transpose(1, 0, 2)),
+                    jnp.asarray(rot.transpose(1, 0, 2)),
+                    jnp.asarray(feat.transpose(1, 0, 2), jnp.bfloat16), fp,
+                    share=SHARE, K=1, eps=EPS, sb=8)
+    jh = np.asarray(jh).transpose(1, 0, 2)
+    jkd2 = np.asarray(jkd2).T
+    h, kd2 = tagg.fused_subgroup_agg(
+        torch.tensor(q), torch.tensor(nbr), torch.tensor(rot),
+        torch.tensor(feat).to(torch.bfloat16), port_weights(fp), 1, EPS)
+    h, kd2 = h.numpy(), kd2.numpy()
+    ok = jkd2 < 1e17
+    assert 0.7 < ok.mean() < 0.95
     np.testing.assert_array_equal(kd2 > 1e17, ~ok)
     np.testing.assert_allclose(kd2[ok], jkd2[ok], rtol=1e-6, atol=0)
     assert np.isfinite(h).all()
@@ -130,3 +166,21 @@ def test_agg_cuda_entry_refuses_cpu_tensors():
         tagg.fused_subgroup_agg_cuda(
             torch.tensor(q), torch.tensor(nbr), torch.tensor(rot),
             torch.tensor(feat).to(torch.bfloat16), port_weights(fp), K, EPS)
+
+
+def test_agg_cuda_entry_refuses_what_the_chain_cannot_hold():
+    """The chain's shared-memory rule is checked before anything is
+    launched: a first layer too wide for it raises."""
+    from apnerf_torch.kernels.featmlp import chain_plan
+    g = torch.Generator().manual_seed(0)
+    pe, kc = 64, 8                                     # P_pad = 400
+    fin = 3 * (1 + 2 * pe) + F
+    layers = [(torch.randn(F, fin, generator=g).to(torch.bfloat16),
+               torch.randn(F, generator=g).to(torch.bfloat16))]
+    wts = pack_weights(layers, F, pe, None)
+    assert chain_plan(F, wts.P_pad, 1)["mode"] == "refused"
+    q, nbr, rot, feat, _ = inputs(kc)
+    with pytest.raises(ValueError, match="does not fit"):
+        tagg.fused_subgroup_agg_cuda(
+            torch.tensor(q), torch.tensor(nbr), torch.tensor(rot),
+            torch.tensor(feat).to(torch.bfloat16), wts, K, EPS)
