@@ -3,28 +3,159 @@
 //
 // Replaces apnerf/kernels/knn_cells_pallas.py:knn_count_pallas
 // (_count_kernel) and :knn_radius_pallas (_kernel/_block). The host side
-// (kernels/knn_cells.py) sorts the points into tiles of pts_per_tile and
-// lists, for every block of kQB consecutive queries, the tiles whose bbox
-// lies within the radius of the block's bbox, in ascending tile order.
-// Bound on the H100: distance evaluations over the listed tiles (about a
-// quarter of all tiles at the bench shape) -- fp32 ALU and shared-memory
-// reads; the outputs are a few bytes per query.
-// Design: one block per query block, one thread per query. The block
-// stages up to kStage candidate tiles at a time in shared memory; each
-// thread scans them in index order.
-//   K2 counts points with d2 <= r2 (exact fp32; see sq_dist).
-//   K3 keeps an ascending register top-k of the points with d2 <= r2,
-//   exact fp32 d2 (the TPU kernel's 11-bit packed keys are not
-//   reproduced), ties to the lower sorted index, empty slots (+inf, 0).
-#include "knn_common.cuh"
+// (kernels/knn_cells.py) sorts the points into tiles of pts_per_tile with
+// their boxes, once a frame. Each kernel lists its own candidate tiles
+// (knn_tiles.cuh): a block reduces its queries' box by shuffles and tests
+// the tile boxes in parallel, so a call is one launch with no tensor
+// operation before it.
+//
+// K2 counts the points with d2 <= r2 (exact fp32; see sq_dist), 40 launches
+// an exact frame. Bound on the H100: the distance evaluations, which the
+// exact compare keeps on the fp32 pipes without FMA (3 subtractions, 3
+// products, 2 additions, a compare and a count a pair) and off the tensor
+// cores; the bytes are a few MB. What a kernel can lose beyond that is
+// pairs it need not look at, shared-memory reads per pair, barriers with
+// no copy in flight, and SMs without a block. Design:
+//   * a block of 256 threads takes 64 Morton-ordered queries, four lanes a
+//     query; a call of fewer than kFewQueries queries takes 16 queries a
+//     block, sixteen lanes a query, so that 7,392 queries are 462 blocks
+//     and not 29. A tighter box lists fewer tiles than 256 queries would,
+//     and a warp (8 or 2 queries) skips a listed tile that lies beyond the
+//     radius of its own box.
+//   * a query's lanes take the groups of four points of a tile in turn,
+//     each with three 16-byte shared-memory reads (x, y, z of four points):
+//     0.75 reads a pair, the lanes' reads side by side in one segment; the
+//     lanes' counts meet by shuffles.
+//   * tiles are staged by cp.async in rounds of 1,024 points, the next
+//     round's copy in flight while this round is scanned.
+//   * counts are integers, so every split of the work is exact.
+// K3 keeps an ascending register top-k of the points with d2 <= r2, exact
+// fp32 d2 (the TPU kernel's 11-bit packed keys are not reproduced), ties to
+// the lower sorted index, empty slots (+inf, 0): one block of 256 queries,
+// one thread a query, the listed tiles staged 8 at a time and scanned in
+// ascending order (the ties depend on it).
+#include "knn_tiles.cuh"
 
 namespace {
 
-constexpr int kQB = 256;    // queries per block (the host's block size)
-constexpr int kStage = 8;   // candidate tiles staged per round
+constexpr int kThreads = 256;
+constexpr int kQB = 256;       // K3: queries per block, one thread each
+constexpr int kStage = 8;      // K3: candidate tiles staged per round
+constexpr int kLanesMany = 4;  // K2: lanes per query,
+constexpr int kLanesFew = 16;  // and in a call of fewer than
+constexpr int kFewQueries = 32768;  // this many queries
+constexpr int kRoundPts = 1024;     // K2: points staged per round
 
-// Stage tiles [c0, c0 + n) of this block's candidate list into sp as
-// n consecutive [3, pts] slabs.
+// one asynchronous copy of kBytes (4 or 16) from global to shared memory
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  if (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(gmem));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                 "l"(gmem));
+  }
+}
+
+// K2: start the copy of tiles list[c0 .. c0 + n) into buf as n consecutive
+// [3, pts] slabs (16 bytes a copy when pts is a multiple of 4).
+__device__ __forceinline__ void stage_async(float* buf, const float* pts_t,
+                                            const int* list, int c0, int n,
+                                            int pts) {
+  const int per = 3 * pts;
+  if ((pts & 3) == 0) {
+    const int per4 = per >> 2;
+    for (int t = threadIdx.x; t < n * per4; t += kThreads) {
+      const int s = t / per4, o = (t - s * per4) << 2;
+      cp_async<16>(buf + s * per + o,
+                   pts_t + (size_t)list[c0 + s] * per + o);
+    }
+  } else {
+    for (int t = threadIdx.x; t < n * per; t += kThreads) {
+      const int s = t / per, o = t - s * per;
+      cp_async<4>(buf + s * per + o,
+                  pts_t + (size_t)list[c0 + s] * per + o);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kLanes>
+__global__ void __launch_bounds__(kThreads) knn_count_kernel(
+    const float* __restrict__ q, int M, const float* __restrict__ pts_t,
+    const float* __restrict__ t_lo, const float* __restrict__ t_hi, int T,
+    int pts, float r2, int* __restrict__ out) {
+  __shared__ __align__(16) float s_buf[2][3 * kRoundPts];
+  __shared__ TileScratch<kThreads> sc;
+  const int sub = threadIdx.x % kLanes;
+  const int m = blockIdx.x * (kThreads / kLanes) + threadIdx.x / kLanes;
+  const bool live = m < M;
+  const float qx = live ? q[3 * m] : 0.f;
+  const float qy = live ? q[3 * m + 1] : 0.f;
+  const float qz = live ? q[3 * m + 2] : 0.f;
+  const Box warp = query_boxes<kThreads>(qx, qy, qz, live, sc);
+  const int lane = threadIdx.x & 31;
+  const int per_round = min(32, max(1, kRoundPts / pts));  // tiles a round
+  int cnt = 0;
+  for (int t0 = 0; t0 < T; t0 += kListCap) {
+    const int n_list = list_tiles<kThreads>(t_lo, t_hi, t0, T, r2, sc);
+    const int n_rounds = (n_list + per_round - 1) / per_round;
+    if (n_rounds) {
+      stage_async(s_buf[0], pts_t, sc.list, 0, min(per_round, n_list), pts);
+    }
+    for (int r = 0; r < n_rounds; ++r) {
+      const int c0 = r * per_round, n = min(per_round, n_list - c0);
+      if (r + 1 < n_rounds) {
+        stage_async(s_buf[(r + 1) & 1], pts_t, sc.list, c0 + per_round,
+                    min(per_round, n_list - c0 - per_round), pts);
+      }
+      // the round's tiles within the radius of the warp's own box, one
+      // lane a tile
+      unsigned near = __ballot_sync(
+          0xffffffffu, lane < n && box_in_radius(warp, t_lo, t_hi,
+                                                 sc.list[c0 + min(lane, n - 1)],
+                                                 r2));
+      if (r + 1 < n_rounds) {
+        asm volatile("cp.async.wait_group 1;\n" ::);
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::);
+      }
+      __syncthreads();  // this round's tiles have landed for every thread
+      const float* buf = s_buf[r & 1];
+      for (; near; near &= near - 1) {
+        const float* px = buf + (__ffs(near) - 1) * 3 * pts;
+        if ((pts & 3) == 0) {
+          const int n4 = pts >> 2;
+          const float4* x4 = reinterpret_cast<const float4*>(px);
+#pragma unroll 2
+          for (int f = sub; f < n4; f += kLanes) {
+            const float4 X = x4[f], Y = x4[n4 + f], Z = x4[2 * n4 + f];
+            cnt += (sq_dist(qx, qy, qz, X.x, Y.x, Z.x) <= r2) +
+                   (sq_dist(qx, qy, qz, X.y, Y.y, Z.y) <= r2) +
+                   (sq_dist(qx, qy, qz, X.z, Y.z, Z.z) <= r2) +
+                   (sq_dist(qx, qy, qz, X.w, Y.w, Z.w) <= r2);
+          }
+        } else {
+          for (int j = sub; j < pts; j += kLanes) {
+            cnt += sq_dist(qx, qy, qz, px[j], px[pts + j], px[2 * pts + j])
+                   <= r2;
+          }
+        }
+      }
+      __syncthreads();  // done with s_buf[r & 1] and, at the end, the list
+    }
+  }
+#pragma unroll
+  for (int d = kLanes / 2; d > 0; d >>= 1) {
+    cnt += __shfl_xor_sync(0xffffffffu, cnt, d);
+  }
+  if (live && sub == 0) out[m] = cnt;
+}
+
+// K3: stage tiles list[c0 .. c0 + n) into sp as n consecutive [3, pts]
+// slabs.
 __device__ __forceinline__ void stage_tiles(float* sp, const float* pts_t,
                                             const int* list, int c0, int n,
                                             int pts) {
@@ -35,52 +166,19 @@ __device__ __forceinline__ void stage_tiles(float* sp, const float* pts_t,
   }
 }
 
-__global__ void __launch_bounds__(kQB) knn_count_kernel(
-    const float* __restrict__ q, int M, const float* __restrict__ pts_t,
-    int T, int pts, const int* __restrict__ tile_list,
-    const int* __restrict__ tile_cnt, float r2, int* __restrict__ out) {
-  extern __shared__ float sp[];
-  const int b = blockIdx.x;
-  const int m = b * kQB + threadIdx.x;
-  const bool live = m < M;
-  const float qx = live ? q[3 * m] : 0.f;
-  const float qy = live ? q[3 * m + 1] : 0.f;
-  const float qz = live ? q[3 * m + 2] : 0.f;
-  const int* list = tile_list + (size_t)b * T;
-  const int n_cand = tile_cnt[b];
-  int cnt = 0;
-  for (int c0 = 0; c0 < n_cand; c0 += kStage) {
-    const int n = min(kStage, n_cand - c0);
-    __syncthreads();
-    stage_tiles(sp, pts_t, list, c0, n, pts);
-    __syncthreads();
-    if (live) {
-      for (int s = 0; s < n; ++s) {
-        const float* px = sp + s * 3 * pts;
-        for (int j = 0; j < pts; ++j) {
-          cnt += sq_dist(qx, qy, qz, px[j], px[pts + j], px[2 * pts + j]) <= r2;
-        }
-      }
-    }
-  }
-  if (live) out[m] = cnt;
-}
-
 template <int K>
 __global__ void __launch_bounds__(kQB) knn_radius_kernel(
     const float* __restrict__ q, int M, const float* __restrict__ pts_t,
-    int T, int pts, const int* __restrict__ tile_list,
-    const int* __restrict__ tile_cnt, float r2, float* __restrict__ out_d,
-    int* __restrict__ out_i) {
+    const float* __restrict__ t_lo, const float* __restrict__ t_hi, int T,
+    int pts, float r2, float* __restrict__ out_d, int* __restrict__ out_i) {
   extern __shared__ float sp[];
-  const int b = blockIdx.x;
-  const int m = b * kQB + threadIdx.x;
+  __shared__ TileScratch<kQB> sc;
+  const int m = blockIdx.x * kQB + threadIdx.x;
   const bool live = m < M;
   const float qx = live ? q[3 * m] : 0.f;
   const float qy = live ? q[3 * m + 1] : 0.f;
   const float qz = live ? q[3 * m + 2] : 0.f;
-  const int* list = tile_list + (size_t)b * T;
-  const int n_cand = tile_cnt[b];
+  query_boxes<kQB>(qx, qy, qz, live, sc);
   float bd[K];
   int bi[K];
 #pragma unroll
@@ -88,22 +186,27 @@ __global__ void __launch_bounds__(kQB) knn_radius_kernel(
     bd[j] = __int_as_float(0x7f800000);  // +inf
     bi[j] = 0;
   }
-  for (int c0 = 0; c0 < n_cand; c0 += kStage) {
-    const int n = min(kStage, n_cand - c0);
-    __syncthreads();
-    stage_tiles(sp, pts_t, list, c0, n, pts);
-    __syncthreads();
-    if (live) {
-      for (int s = 0; s < n; ++s) {
-        const float* px = sp + s * 3 * pts;
-        const int base = list[c0 + s] * pts;
-        for (int j = 0; j < pts; ++j) {
-          const float d =
-              sq_dist(qx, qy, qz, px[j], px[pts + j], px[2 * pts + j]);
-          if (d <= r2) topk_insert<K>(bd, bi, d, base + j);
+  for (int t0 = 0; t0 < T; t0 += kListCap) {
+    const int n_cand = list_tiles<kQB>(t_lo, t_hi, t0, T, r2, sc);
+    const int* list = sc.list;
+    for (int c0 = 0; c0 < n_cand; c0 += kStage) {
+      const int n = min(kStage, n_cand - c0);
+      __syncthreads();
+      stage_tiles(sp, pts_t, list, c0, n, pts);
+      __syncthreads();
+      if (live) {
+        for (int s = 0; s < n; ++s) {
+          const float* px = sp + s * 3 * pts;
+          const int base = list[c0 + s] * pts;
+          for (int j = 0; j < pts; ++j) {
+            const float d =
+                sq_dist(qx, qy, qz, px[j], px[pts + j], px[2 * pts + j]);
+            if (d <= r2) topk_insert<K>(bd, bi, d, base + j);
+          }
         }
       }
     }
+    __syncthreads();  // done with the list before the next one is made
   }
   if (live) {
 #pragma unroll
@@ -116,30 +219,51 @@ __global__ void __launch_bounds__(kQB) knn_radius_kernel(
 
 }  // namespace
 
+// K2's queries per block in a call of M queries
+extern "C" int knn_count_block(int M) {
+  return kThreads / (M < kFewQueries ? kLanesFew : kLanesMany);
+}
+
+// q [M, 3]; pts_t [T, 3, pts]; t_lo, t_hi [T, 3]: the tiles' boxes; out [M].
+// lanes: 0, or the lanes per query to take whatever M is (4 or 16).
 extern "C" int knn_count_launch(const float* q, int M, const float* pts_t,
-                                int T, int pts, const int* tile_list,
-                                const int* tile_cnt, float r2, int* out,
+                                const float* t_lo, const float* t_hi, int T,
+                                int pts, float r2, int lanes, int* out,
                                 void* stream) {
   if (M <= 0) return 0;
-  const dim3 grid((M + kQB - 1) / kQB);
-  const size_t smem = sizeof(float) * kStage * 3 * pts;
-  knn_count_kernel<<<grid, kQB, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, M, pts_t, T, pts, tile_list, tile_cnt, r2, out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes == 0) lanes = M < kFewQueries ? kLanesFew : kLanesMany;
+  const int qb = kThreads / lanes;
+  const dim3 grid((M + qb - 1) / qb);
+  if (lanes == kLanesFew) {
+    knn_count_kernel<kLanesFew><<<grid, kThreads, 0, s>>>(
+        q, M, pts_t, t_lo, t_hi, T, pts, r2, out);
+  } else if (lanes == kLanesMany) {
+    knn_count_kernel<kLanesMany><<<grid, kThreads, 0, s>>>(
+        q, M, pts_t, t_lo, t_hi, T, pts, r2, out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 extern "C" int knn_radius_launch(const float* q, int M, const float* pts_t,
-                                 int T, int pts, const int* tile_list,
-                                 const int* tile_cnt, float r2, int k,
-                                 float* out_d, int* out_i, void* stream) {
+                                 const float* t_lo, const float* t_hi, int T,
+                                 int pts, float r2, int k, float* out_d,
+                                 int* out_i, void* stream) {
   if (M <= 0) return 0;
   const dim3 grid((M + kQB - 1) / kQB);
   const size_t smem = sizeof(float) * kStage * 3 * pts;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define KNN_RADIUS_CALL(K)                                            \
-  knn_radius_kernel<K><<<grid, kQB, smem, s>>>(q, M, pts_t, T, pts,   \
-                                               tile_list, tile_cnt, r2, \
-                                               out_d, out_i)
+  // beside the listing's static scratch the largest tiles pass 48 KB
+#define KNN_RADIUS_CALL(K)                                                  \
+  if (smem + sizeof(TileScratch<kQB>) > 48 * 1024) {                        \
+    cudaFuncSetAttribute(knn_radius_kernel<K>,                              \
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,       \
+                         (int)smem);                                        \
+  }                                                                         \
+  knn_radius_kernel<K><<<grid, kQB, smem, s>>>(q, M, pts_t, t_lo, t_hi, T,  \
+                                               pts, r2, out_d, out_i)
   KNN_DISPATCH_K(k, KNN_RADIUS_CALL)
 #undef KNN_RADIUS_CALL
   return (int)cudaGetLastError();

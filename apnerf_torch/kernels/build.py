@@ -23,22 +23,29 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v", "-lineinfo"]
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry points: argument types; each returns cudaGetLastError() as int
+# C entry points: argument types; each returns an int (a launch:
+# cudaGetLastError())
 SIGNATURES = {
     # q, p, M, P, k, out_d2, out_idx, stream
     "knn_brute_launch": [P, P, I, I, I, P, P, P],
-    # q, M, pts_t, T, pts_per_tile, tile_list, tile_cnt, r2, out_cnt, stream
-    "knn_count_launch": [P, I, P, I, I, P, P, F, P, P],
-    # q, M, pts_t, T, pts_per_tile, tile_list, tile_cnt, r2, k,
-    # out_d2, out_idx, stream
-    "knn_radius_launch": [P, I, P, I, I, P, P, F, I, P, P, P],
+    # q, M, pts_t, t_lo, t_hi, T, pts_per_tile, r2, lanes, out_cnt, stream
+    "knn_count_launch": [P, I, P, P, P, I, I, F, I, P, P],
+    # q, M, pts_t, t_lo, t_hi, T, pts_per_tile, r2, k, out_d2, out_idx,
+    # stream
+    "knn_radius_launch": [P, I, P, P, P, I, I, F, I, P, P, P],
+    # M -> K2's queries per block
+    "knn_count_block": [I],
     # rel, feat, w, image, b1, bl, M, K, F, n_pe, P_pad, n_layers, out,
     # stream
     "featmlp_launch": [P, P, P, P, P, P, I, I, I, I, I, I, P, P],
     # F, P_pad, n_layers, resident (out), smem_bytes (out); 0 when refused
     "featmlp_plan": [I, I, I, P, P],
-    # idx, upd, M, C, n_rows, transposed, offs, out, stream
-    "scatter_launch": [P, P, I, I, I, I, P, P, P],
+    # idx, upd, M, C, n_rows, transposed, offs, cnt, items, pinfo, partial,
+    # out, stream
+    "scatter_launch": [P, P, I, I, I, I, P, P, P, P, P, P, P],
+    # K5's kItemRows and kHotRows
+    "scatter_item_rows": [],
+    "scatter_hot_rows": [],
     # q, nbr, rot, feat, image, b1, bl, S, share, kc, K, eps, F, n_pe,
     # P_pad, n_layers, h, kd2, stream
     "agg_launch": [P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, I, P, P, P],

@@ -2,11 +2,15 @@
 tiles (``csrc/knn_cells.cu``).
 
 Port of ``apnerf/kernels/knn_cells_pallas.py``: ``build_point_tables``
-sorts and tiles the warped cloud once per frame; every query block of
-``QB`` consecutive (Morton-ordered) queries gets the ascending list of
-tiles whose bbox lies within the radius of the block's bbox. The TPU
-kernel's [NG, 4, 8, 128] metadata packing and its tile-count limit are
-not ported.
+sorts and tiles the warped cloud once per frame, with each tile's bounding
+box. A kernel's block takes consecutive (Morton-ordered) queries, ``QB``
+of them in K3 and ``count_block(M)`` in K2, and walks only the tiles whose
+box lies within the radius of its queries' box, in ascending tile order. The
+kernels list those tiles themselves (``csrc/knn_tiles.cuh``), so a call on
+a CUDA tensor is a check, an allocation and one launch;
+``candidate_tiles`` is the plain version of that listing, for the CPU
+tests and for counting the pairs a kernel must look at. The TPU kernel's
+[NG, 4, 8, 128] metadata packing and its tile-count limit are not ported.
 
 K3's contract differs from the TPU kernel's on purpose: d2 are exact fp32
 (not 11-bit packed keys) and only points with d2 <= radius2 are returned,
@@ -23,8 +27,11 @@ import torch
 from . import LAUNCHES, check, on_cpu, query_chunks, raise_on_error, \
     sq_dist, stream_handle
 
-QB = 256     # queries per block (csrc/knn_cells.cu kQB)
-PTS = 128    # points per tile
+QB = 256             # K3: queries per block (csrc/knn_cells.cu kQB)
+QB_COUNT = 64        # K2: queries per block, four lanes a query (kLanesMany),
+QB_COUNT_FEW = 16    # and with sixteen lanes a query (kLanesFew) in a call
+FEW_QUERIES = 32768  # of fewer than this many queries (kFewQueries)
+PTS = 128            # points per tile
 MAX_PTS = 512
 
 
@@ -63,21 +70,28 @@ def build_point_tables(points: torch.Tensor,
     }
 
 
+def count_block(M: int) -> int:
+    """K2's queries per block in a call of M queries."""
+    return QB_COUNT_FEW if M < FEW_QUERIES else QB_COUNT
+
+
 def candidate_tiles(queries: torch.Tensor, tables: Dict[str, torch.Tensor],
-                    radius2: float):
-    """Per QB-query block: tiles whose bbox gap^2 to the block bbox is
-    <= radius2, listed first and ascending -> (list [NB, T], count [NB]).
+                    radius2: float, qb: int = QB):
+    """Per block of ``qb`` queries: tiles whose bbox gap^2 to the block
+    bbox is <= radius2, listed first and ascending -> (list [NB, T], count
+    [NB]). The plain version of the kernels' own listing; a ragged last
+    block's box is that of the queries it has.
 
     The compare is ``<=`` (the TPU code has ``<``): a point at exactly
     d2 == radius2 counts, and gap^2 <= d2 holds in fp32, so no tile holding
     an in-radius point is dropped."""
     M = queries.shape[0]
-    NB = -(-M // QB)
-    pad = NB * QB - M
+    NB = -(-M // qb)
+    pad = NB * qb - M
     q = queries
     if pad:
         q = torch.cat([q, q[-1:].expand(pad, 3)])   # no bbox growth
-    blk = q.reshape(NB, QB, 3)
+    blk = q.reshape(NB, qb, 3)
     q_lo, q_hi = blk.amin(1), blk.amax(1)
     t_lo, t_hi = tables["t_lo"], tables["t_hi"]
     gap = torch.clamp(torch.maximum(q_lo[:, None] - t_hi[None],
@@ -121,24 +135,27 @@ def _check_tables(queries, tables):
     T, _, pts = pts_t.shape
     check(queries, "queries", torch.float32, (queries.shape[0], 3))
     check(pts_t, "pts_t", torch.float32, (T, 3, pts))
+    check(tables["t_lo"], "t_lo", torch.float32, (T, 3))
+    check(tables["t_hi"], "t_hi", torch.float32, (T, 3))
     if pts > MAX_PTS:
         raise ValueError(f"pts_per_tile {pts} > {MAX_PTS}")
     return pts_t, T, pts
 
 
 def knn_count_cuda(queries: torch.Tensor, tables: Dict[str, torch.Tensor],
-                   radius2: float) -> torch.Tensor:
-    """Launch K2 on the queries' CUDA device."""
+                   radius2: float, lanes: int = 0) -> torch.Tensor:
+    """Launch K2 on the queries' CUDA device. ``lanes``: 0, or the lanes a
+    query (4 or 16) to take whatever ``count_block`` says (for timing one
+    against the other)."""
     pts_t, T, pts = _check_tables(queries, tables)
-    tile_list, tile_cnt = candidate_tiles(queries, tables, radius2)
     from .build import load_library
     lib = load_library()
     M = queries.shape[0]
     out = torch.empty(M, dtype=torch.int32, device=queries.device)
     LAUNCHES["knn_count"] += 1
     raise_on_error(lib.knn_count_launch(
-        queries.data_ptr(), M, pts_t.data_ptr(), T, pts,
-        tile_list.data_ptr(), tile_cnt.data_ptr(), float(radius2),
+        queries.data_ptr(), M, pts_t.data_ptr(), tables["t_lo"].data_ptr(),
+        tables["t_hi"].data_ptr(), T, pts, float(radius2), lanes,
         out.data_ptr(), stream_handle(queries)), "knn_count")
     return out
 
@@ -149,7 +166,6 @@ def knn_radius_cuda(queries: torch.Tensor, tables: Dict[str, torch.Tensor],
     if not 1 <= k <= 16:
         raise ValueError(f"knn_radius: need 1 <= k <= 16, got {k}")
     pts_t, T, pts = _check_tables(queries, tables)
-    tile_list, tile_cnt = candidate_tiles(queries, tables, radius2)
     from .build import load_library
     lib = load_library()
     M = queries.shape[0]
@@ -157,8 +173,8 @@ def knn_radius_cuda(queries: torch.Tensor, tables: Dict[str, torch.Tensor],
     idx = torch.empty((M, k), dtype=torch.int32, device=queries.device)
     LAUNCHES["knn_radius"] += 1
     raise_on_error(lib.knn_radius_launch(
-        queries.data_ptr(), M, pts_t.data_ptr(), T, pts,
-        tile_list.data_ptr(), tile_cnt.data_ptr(), float(radius2), k,
+        queries.data_ptr(), M, pts_t.data_ptr(), tables["t_lo"].data_ptr(),
+        tables["t_hi"].data_ptr(), T, pts, float(radius2), k,
         d2.data_ptr(), idx.data_ptr(), stream_handle(queries)),
         "knn_radius")
     return d2, idx

@@ -9,8 +9,11 @@ weights from a seed) at 400 x 400 in 8192-ray chunks through
 ``torch.profiler``: the window's wall time, the device's busy and idle
 share (the union of the kernels' intervals), the share of device time of
 the hand-written kernels (K2 / K3 the k-NN, K4 ``featmlp``, K6 ``agg``),
-and the kernels that take the most device time. ``--trace`` also writes
-the Chrome traces there.
+the kernels a frame, and the kernels that take the most device time. The
+K2 / K3 wrappers run inside profiler ranges: whatever they launch besides
+their own kernel (the PyTorch operations of the candidate-tile listing,
+before the kernels listed their tiles themselves) is counted and timed as
+their front end. ``--trace`` also writes the Chrome traces there.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import argparse
 import os
 import time
 from collections import defaultdict
+from contextlib import contextmanager
+from unittest import mock
 
 import numpy as np
 import torch
@@ -37,6 +42,56 @@ def _group(name: str) -> str:
         if any(m in name for m in marks):
             return group
     return "other"
+
+
+# the K2 / K3 wrappers of kernels/knn_cells.py and the names of their
+# profiler ranges (which must not hold a kernel's name: see OWN)
+WRAPPERS = {"knn_count_cuda": "wrapper of K2", "knn_radius_cuda":
+            "wrapper of K3"}
+
+
+@contextmanager
+def wrapper_ranges():
+    """Run the K2 / K3 wrappers inside the profiler ranges of WRAPPERS."""
+    from ..kernels import knn_cells as kc
+
+    def ranged(name):
+        fn = getattr(kc, name)
+
+        def call(*args, **kw):
+            with torch.profiler.record_function(WRAPPERS[name]):
+                return fn(*args, **kw)
+        return call
+    k2, k3 = WRAPPERS
+    with mock.patch.object(kc, k2, ranged(k2)), \
+            mock.patch.object(kc, k3, ranged(k3)):
+        yield
+
+
+def _launched_under(event):
+    """The device kernels launched under a CPU event of the profile, its
+    child operations included."""
+    out = list(event.kernels)
+    for child in event.cpu_children:
+        out += _launched_under(child)
+    return out
+
+
+def front_end(prof):
+    """By wrapper range: calls, and the count, device microseconds and
+    names of the PyTorch kernels launched inside it. (A kernel launched
+    through ctypes, as the hand-written ones are, is tied to no range.)"""
+    rows = {name: dict(calls=0, other=0, other_us=0.0, names=defaultdict(int))
+            for name in WRAPPERS.values()}
+    for e in prof.events():
+        if e.name in rows and e.device_type == torch.autograd.DeviceType.CPU:
+            row = rows[e.name]
+            row["calls"] += 1
+            for k in _launched_under(e):
+                row["other"] += 1
+                row["other_us"] += k.duration
+                row["names"][k.name] += 1
+    return rows
 
 
 def cameras(n):
@@ -92,12 +147,15 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         prof.start()
         t0 = time.perf_counter()
-        render(mode)
+        with wrapper_ranges():
+            render(mode)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
         prof.stop()
         launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
-        ivals = _kernel_intervals(prof)
+        # the ranges show up on the device's side too: they are no kernels
+        ivals = [iv for iv in _kernel_intervals(prof)
+                 if iv[0] not in WRAPPERS.values()]
         busy = _union_us(ivals)
         by_group, by_name, count = (defaultdict(float), defaultdict(float),
                                     defaultdict(int))
@@ -116,6 +174,14 @@ def main(argv=None) -> int:
         for g, t in sorted(by_group.items(), key=lambda x: -x[1]):
             print(f"profile_render {mode}: group {g}: {t / 1e3 / n:.2f} "
                   f"ms/frame ({t / dev_total:.3f} of device time)")
+        for name, row in front_end(prof).items():
+            top = sorted(row["names"].items(), key=lambda x: -x[1])[:3]
+            print(f"profile_render {mode}: {name}: {row['calls'] // n} calls "
+                  f"a frame, {row['other'] / n:.1f} PyTorch kernels a frame "
+                  f"launched inside it (the tile listing, before the "
+                  f"kernels listed their tiles themselves), "
+                  f"{row['other_us'] / 1e3 / n:.2f} ms of device time a "
+                  f"frame{''.join(f'; {c} x {k[:60]}' for k, c in top)}")
         for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
             print(f"profile_render {mode}: kernel {t / 1e3 / n:7.2f} "
                   f"ms/frame in {count[name] // n:5d} launches  "

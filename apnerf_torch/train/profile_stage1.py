@@ -22,7 +22,7 @@ from collections import defaultdict
 import torch
 
 GEMM_MARKS = ("gemm", "Gemm", "nvjet", "cutlass", "xmma", "sm90_")
-K5_MARKS = ("accumulate_kernel", "window_offsets_kernel")
+K5_MARKS = ("accumulate_kernel", "plan_kernel", "combine_kernel")
 
 
 def _group(name: str) -> str:

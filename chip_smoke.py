@@ -20,7 +20,14 @@ and no result line is printed):
    bit-equal to the plain version on a CPU copy of the inputs (the
    row-order sum is sequential in both), else under ``K5_MAX_ABS_ERR``,
    printed beside the bf16-row control, and beside the one library call
-   that computes the same (``index_add_``). K6 (agg) at the bench shape
+   that computes the same (``index_add_``), which K5 must beat at 42^3;
+   then a cell of 300,000 rows (summed in chunks, in the plain version's
+   order), rows all out of range, one cell holding every row, C = 8 in the
+   other layout, and the kernel's work items against ``item_plan``. K2 and
+   K3 also on a ragged M, a block of sentinel queries only, clouds of
+   10^5 and of 130 points, tiles of 32 and 512 points, and points at
+   exactly d2 == r2; K2's and K5's times beside those of the kernels they
+   replace and with 20 launches queued. K6 (agg) at the bench shape
    (4480 subgroups of 16 members, 8 candidates) and with 12 candidates,
    ~10% of the slots invalid: ``kd2`` bit-equal, ``h`` finite and under
    ``K6_MAX_ABS_ERR`` / ``K6_MEAN_ABS_ERR``, beside the same control as
@@ -135,6 +142,12 @@ K6_REL_MEAN_ERR = 1e-5
 K4_EARLIER_MS = 4.461
 K6_EARLIER_MS = 4.077
 K6_EARLIER_KC12_MS = 6.483
+# What the kernels that K2 / K5 replace, and K3 behind the PyTorch tile
+# listing, read at the main paths' shapes on an NVIDIA H100 80GB HBM3,
+# 700 W: printed beside the new times.
+K2_EARLIER_MS = {7392: 0.755, 131072: 0.796}
+K3_EARLIER_MS = {8192: 0.828, 71680: 0.942}
+K5_EARLIER_MS = {161: 0.881, 81: 0.349, 41: 1.132}
 N_VIEWS = 3
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
 # memory bytes/s, bf16 tensor-core and fp32 non-tensor-core FLOP/s. A
@@ -341,7 +354,7 @@ def phase_kernels(torch, pcd, report):
     p = torch.tensor(pcd, device=dev)
     tabs = kc.build_point_tables(p)
 
-    def queries(n, spread):
+    def queries(n, spread, g=g):
         i = torch.randint(0, p.shape[0], (n,), generator=g).to(dev)
         q = p[i] + spread * torch.randn(n, 3, generator=g).to(dev)
         order = torch.argsort(morton_codes(q, tabs["p_lo"], tabs["p_hi"]),
@@ -351,11 +364,11 @@ def phase_kernels(torch, pcd, report):
     # a squared distance is 3 subtractions, 3 products, 2 additions
     PAIR_FLOP = 8
 
-    def pairs_examined(q, r2):
+    def pairs_examined(q, r2, qb, tables=tabs):
         """Query-point pairs that K2 / K3 must look at for these queries:
-        those of the tiles within the radius of each query block."""
-        _, cnt = kc.candidate_tiles(q, tabs, r2)
-        return int(cnt.sum()) * kc.QB * tabs["pts_t"].shape[2]
+        those of the tiles within the radius of each block of qb queries."""
+        _, cnt = kc.candidate_tiles(q, tables, r2, qb=qb)
+        return int(cnt.sum()) * qb * tables["pts_t"].shape[2]
 
     ms, (d, i) = cuda_ms(lambda: kb.knn_brute(p, p, 8))
     pms, (pd, pi) = cuda_ms(lambda: kb.knn_brute_plain(p, p, 8))
@@ -364,6 +377,11 @@ def phase_kernels(torch, pcd, report):
     report.add("knn_brute", "P=10000 k=8", ms, pms, 0.0,
                nbytes(p, p, d, i), PAIR_FLOP * p.shape[0] ** 2, "fp32")
 
+    from apnerf_torch.kernels import build
+    lib = build.load_library()
+    for n in (1, kc.FEW_QUERIES - 1, kc.FEW_QUERIES, 1 << 20):
+        if lib.knn_count_block(n) != kc.count_block(n):
+            raise AssertionError("knn_cells.count_block is not the kernel's")
     # group midpoints (7,392, prefilter radius) and samples (131,072)
     stepdist = 0.5 * 0.012
     thr = float((np.sqrt(RADIUS) + 31 / 2 * stepdist) ** 2)
@@ -374,9 +392,20 @@ def phase_kernels(torch, pcd, report):
                                                      r2))
         if not torch.equal(c, pc):
             raise AssertionError(f"knn_count differs at M={n}")
-        report.add("knn_count", f"M={n}", ms, pms, 0.0,
-                   nbytes(q, tabs["pts_t"], c),
-                   PAIR_FLOP * pairs_examined(q, r2), "fp32")
+        qb = kc.count_block(n)
+        pairs = pairs_examined(q, r2, qb)
+        report.add("knn_count", f"M={n}, {qb} queries a block", ms, pms, 0.0,
+                   nbytes(q, tabs["pts_t"], tabs["t_lo"], tabs["t_hi"], c),
+                   PAIR_FLOP * pairs, "fp32")
+        print_front_end("knn_count", f"M={n}", ms, K2_EARLIER_MS[n],
+                        lambda: kc.knn_count(q, tabs, r2), pairs,
+                        [(b, pairs_examined(q, r2, b)) for b in (256,)],
+                        PAIR_FLOP)
+        by_lanes = {lanes: queued_ms(lambda: kc.knn_count_cuda(
+            q, tabs, r2, lanes)) for lanes in (4, 16)}
+        print(f"kernel knn_count M={n}: queued, with 4 / 16 lanes a query "
+              f"(64 / 16 queries a block) whatever M is: {by_lanes[4]:.3f} / "
+              f"{by_lanes[16]:.3f} ms", flush=True)
 
     r2_sel = float((np.sqrt(RADIUS) + 15 * stepdist / 2) ** 2)
     for n, r2 in ((8192, r2_sel), (71680, RADIUS)):
@@ -386,14 +415,128 @@ def phase_kernels(torch, pcd, report):
             q, tabs["pts_sorted"], 8, r2))
         if not (torch.equal(d, pd) and torch.equal(i, pi)):
             raise AssertionError(f"knn_radius differs at M={n}")
+        pairs = pairs_examined(q, r2, kc.QB)
         report.add("knn_radius", f"M={n} k=8", ms, pms, 0.0,
-                   nbytes(q, tabs["pts_t"], d, i),
-                   PAIR_FLOP * pairs_examined(q, r2), "fp32")
+                   nbytes(q, tabs["pts_t"], tabs["t_lo"], tabs["t_hi"], d, i),
+                   PAIR_FLOP * pairs, "fp32")
+        print_front_end("knn_radius", f"M={n} k=8", ms, K3_EARLIER_MS[n],
+                        lambda: kc.knn_radius(q, tabs, 8, r2), pairs, [],
+                        PAIR_FLOP)
+    # a generator of its own: the phases below keep their draws
+    phase_knn_shapes(torch, p, tabs, queries,
+                     torch.Generator(device="cpu").manual_seed(5))
 
     layers = phase_featmlp(torch, report, g)
     phase_agg(torch, report, layers, g)
     phase_chain_shapes(torch, g)
     phase_scatter(torch, report)
+
+
+def print_front_end(name, shape, ms, earlier_ms, fn, pairs, other_pairs,
+                    pair_flop):
+    """K2's / K3's time beside what the kernel behind the PyTorch tile
+    listing read, the time of a launch with 20 queued, and the bound's
+    pairs at other block sizes (the earlier rows counted 256 queries a
+    block)."""
+    queued = queued_ms(fn)
+    bound = 1e3 * pair_flop * pairs / PEAK_FLOPS["fp32"]
+    others = "".join(
+        f"; at {qb} queries a block {n / 1e6:.1f} M pairs -> "
+        f"{1e3 * pair_flop * n / PEAK_FLOPS['fp32']:.5f} ms"
+        for qb, n in other_pairs)
+    print(f"kernel {name} {shape}: {ms:.3f} ms ({queued:.3f} ms a call when "
+          f"20 calls are queued back to back); bound {bound:.5f} ms "
+          f"({pairs / 1e6:.1f} M pairs of the tiles its blocks list): "
+          f"{100 * bound / ms:.1f}% reached, {100 * bound / queued:.1f}% "
+          f"queued{others}; behind the PyTorch tile listing it read "
+          f"{earlier_ms:.3f} ms ({earlier_ms / ms:.1f}x)", flush=True)
+
+
+def lattice_case(torch, step=2.0 ** -4, side=24, n_q=8000, seed=13):
+    """Points and queries on a lattice scaled by a power of two, so that
+    every squared distance is exact in fp32, with r2 = 9 steps^2: the
+    offsets (3, 0, 0) and (2, 2, 1) put points at exactly d2 == r2."""
+    from apnerf_torch.kernels import knn_cells as kc
+    from apnerf_torch.ops.knn import morton_codes
+    rng = np.random.default_rng(seed)
+    pi = np.unique(rng.integers(0, side, size=(5000, 3)), axis=0)
+    qi = rng.integers(0, side, size=(n_q, 3))
+    tabs = kc.build_point_tables(torch.tensor(pi * step, dtype=torch.float32,
+                                              device=DEVICE))
+    q = torch.tensor(qi * step, dtype=torch.float32, device=DEVICE)
+    order = torch.argsort(morton_codes(q, tabs["p_lo"], tabs["p_hi"]),
+                          stable=True)
+    qi = torch.tensor(qi, device=DEVICE)[order]
+    d2 = ((qi[:, None, :] - torch.tensor(pi, device=DEVICE)[None]) ** 2
+          ).sum(-1)
+    return (q[order].contiguous(), tabs, 9 * step * step,
+            (d2 <= 9).sum(1).to(torch.int32), int((d2 == 9).sum()))
+
+
+def phase_knn_shapes(torch, p, tabs, queries, g):
+    """K2 and K3 at the shapes a block-listed, split scan gets wrong first
+    (not timed into the table), every one bit-equal to the plain version:
+    a ragged M, a block of sentinel queries only, a cloud whose tiles
+    outnumber one round of tile tests and one of two tiles, tiles of 32 and
+    of 512 points, and points at exactly d2 == r2."""
+    from apnerf_torch.kernels import knn_cells as kc
+    from apnerf_torch.ops.knn import morton_codes
+    dev = p.device
+
+    def both(name, q, tables, r2, k=8, want_count=None):
+        c = kc.knn_count(q, tables, r2)
+        d, i = kc.knn_radius(q, tables, k, r2)
+        pc = kc.knn_count_plain(q, tables["pts_sorted"], r2)
+        for lanes in (4, 16):       # both of K2's shapes, whatever M is
+            if not torch.equal(kc.knn_count_cuda(q, tables, r2, lanes), pc):
+                raise AssertionError(f"knn_count differs with {lanes} lanes "
+                                     f"a query: {name}")
+        pd, pi = kc.knn_radius_plain(q, tables["pts_sorted"], k, r2)
+        torch.cuda.synchronize()
+        if not torch.equal(c, pc):
+            raise AssertionError(f"knn_count differs: {name}")
+        if not (torch.equal(d, pd) and torch.equal(i, pi)):
+            raise AssertionError(f"knn_radius differs: {name}")
+        if want_count is not None and not torch.equal(c, want_count):
+            raise AssertionError(f"knn_count is not the integer count: "
+                                 f"{name}")
+        T, _, pts = tables["pts_t"].shape
+        return (f"{name} (M={q.shape[0]}, T={T} x {pts}, count up to "
+                f"{int(c.max())}, {float((c >= k).float().mean()):.2f} of "
+                f"the queries with {k} in radius)")
+
+    def cloud(P, n_q, spread, pts_per_tile=kc.PTS):
+        pc = (0.3 * torch.randn(P, 3, generator=g)).to(dev)
+        t = kc.build_point_tables(pc, pts_per_tile)
+        i = torch.randint(0, P, (n_q,), generator=g).to(dev)
+        q = pc[i] + spread * torch.randn(n_q, 3, generator=g).to(dev)
+        order = torch.argsort(morton_codes(q, t["p_lo"], t["p_hi"]),
+                              stable=True)
+        return q[order].contiguous(), t
+
+    lines = []
+    sentinel = torch.full((300, 3), 1e9, device=dev)
+    q = torch.cat([queries(4703, 0.05, g), sentinel])   # 5,003 queries
+    lines.append(both("ragged M, the last blocks sentinels only", q, tabs,
+                      RADIUS))
+    if not bool((kc.knn_count(sentinel, tabs, RADIUS)
+                 == (-p.shape[0]) % kc.PTS).all()):
+        raise AssertionError("sentinel queries do not count the pad rows")
+    q, t = cloud(100000, 20011, 0.01)
+    lines.append(both("P=100000", q, t, 0.0004, k=12))
+    q, t = cloud(130, 999, 0.1)
+    lines.append(both("P=130", q, t, 0.02, k=3))
+    q, t = cloud(20000, 10007, 0.02, pts_per_tile=32)
+    lines.append(both("tiles of 32", q, t, 0.002))
+    q, t = cloud(20000, 10007, 0.02, pts_per_tile=512)
+    lines.append(both("tiles of 512", q, t, 0.002, k=16))
+    q, t, r2, want, on_edge = lattice_case(torch)
+    if on_edge < q.shape[0]:
+        raise AssertionError("the lattice case has no points at d2 == r2")
+    lines.append(both(f"lattice, {on_edge} pairs at exactly d2 == r2", q, t,
+                      r2, want_count=want))
+    print("kernel knn_count / knn_radius, other shapes, bit-equal to the "
+          "plain versions: " + "; ".join(lines), flush=True)
 
 
 def random_layers(torch, g, F, n_pe, depth, pose_dim=0):
@@ -670,15 +813,72 @@ def scatter_inputs(torch, n_pad, M=1 << 20, C=96, seed=0):
             e ** 3)
 
 
+def check_item_plan(torch, sc, idx, n_rows, plan):
+    """The work items the kernel's plan pass wrote against the pure
+    function ``item_plan`` on a CPU copy of idx; returns (items, chunks)."""
+    torch.cuda.synchronize()
+    n_items, n_parts = plan["cnt"][-1].tolist()
+    want_items, want_pinfo = sc.item_plan(idx.cpu(), n_rows)
+    got_items = plan["items"][:n_items].cpu().numpy()
+    got_pinfo = plan["pinfo"][:n_parts].cpu().numpy()
+    if not (np.array_equal(got_items, want_items)
+            and np.array_equal(got_pinfo, want_pinfo)):
+        raise AssertionError(
+            f"scatter n_rows={n_rows}: the kernel planned {n_items} items "
+            f"and {n_parts} chunks, item_plan {len(want_items)} and "
+            f"{len(want_pinfo)}, or they differ")
+    return n_items, n_parts
+
+
+def scatter_case(torch, sc, name, idx, upd, n_rows, transposed, timed=False):
+    """K5 on one more input: two runs bit-equal, bit-equal to the plain
+    version on a CPU copy, the item plan as ``item_plan`` gives it."""
+    plan = {}
+    out = sc.sorted_window_accumulate_cuda(idx, upd, n_rows, transposed,
+                                           plan_out=plan)
+    items, chunks = check_item_plan(torch, sc, idx, n_rows, plan)
+    again = sc.sorted_window_accumulate(idx, upd, n_rows, transposed)
+    ref = sc.sorted_window_accumulate_plain(idx.cpu(), upd.cpu(), n_rows,
+                                            transposed)
+    if not (torch.equal(out, again) and torch.equal(out.cpu(), ref)):
+        raise AssertionError(
+            f"scatter {name}: two runs equal {torch.equal(out, again)}, "
+            f"max abs err vs the plain version on the CPU "
+            f"{(out.cpu() - ref).abs().max().item():g}")
+    line = (f"{name} (M={idx.shape[0]} C={upd.shape[1]} n_rows={n_rows}"
+            f"{' transposed' if transposed else ''}: {items} items, "
+            f"{chunks} chunks")
+    if timed:
+        ms, _ = cuda_ms(lambda: sc.sorted_window_accumulate(
+            idx, upd, n_rows, transposed))
+        idx64 = idx.long().clamp(0, n_rows - 1)
+        lms, _ = cuda_ms(lambda: torch.zeros(
+            (n_rows, upd.shape[1]), device=upd.device).index_add_(
+                0, idx64, upd))
+        line += f"; kernel {ms:.3f} ms, index_add_ {lms:.3f} ms"
+    return line + ")"
+
+
 def phase_scatter(torch, report):
     """K5 at the three stage-1 shapes (padded grids 161^3, 81^3, 41^3 of
-    the 160^3 nerf grid; M = 2^20, C = 96, transposed)."""
-    from apnerf_torch.kernels import scatter as sc
+    the 160^3 nerf grid; M = 2^20, C = 96, transposed), then on the inputs
+    that a row-balanced, chunked sum gets wrong first."""
+    from apnerf_torch.kernels import build, scatter as sc
+    lib = build.load_library()
+    if (lib.scatter_item_rows(), lib.scatter_hot_rows()) != (sc.ITEM_ROWS,
+                                                             sc.HOT_ROWS):
+        raise AssertionError("scatter.ITEM_ROWS / HOT_ROWS are not the "
+                             "kernel's")
     for n_pad in (161, 81, 41):
         idx, upd, n_rows = scatter_inputs(torch, n_pad)
         ms, out = cuda_ms(lambda: sc.sorted_window_accumulate(
             idx, upd, n_rows, transposed=True))
-        again = sc.sorted_window_accumulate(idx, upd, n_rows, transposed=True)
+        queued = queued_ms(lambda: sc.sorted_window_accumulate(
+            idx, upd, n_rows, transposed=True), launches=10)
+        plan = {}
+        again = sc.sorted_window_accumulate_cuda(idx, upd, n_rows, True,
+                                                 plan_out=plan)
+        items, chunks = check_item_plan(torch, sc, idx, n_rows, plan)
         pms, pout = cuda_ms(lambda: sc.sorted_window_accumulate_plain(
             idx, upd, n_rows, transposed=True))
         idx64 = idx.long()
@@ -696,16 +896,24 @@ def phase_scatter(torch, report):
                - ref).abs().max().item()
         gpu_plain = (pout.cpu() - ref).abs().max().item()
         del out, again, pout, ref, out_c
+        hottest = int(torch.bincount(idx.long()).max())
         print(f"kernel scatter M={idx.shape[0]} C={upd.shape[1]} "
               f"n_rows={n_rows} transposed: deterministic (two runs "
               f"bit-equal); "
               f"bit-equal to the plain version on the CPU: {bit_equal} "
               f"(max_abs_err {err:g}, gate {K5_MAX_ABS_ERR:g} if not); "
               f"bf16-row control {ctl:g}; plain version on the card "
-              f"(atomics) {gpu_plain:g}", flush=True)
+              f"(atomics) {gpu_plain:g}; {items} work items and {chunks} "
+              f"chunks as item_plan gives them, the fullest cell holds "
+              f"{hottest} rows; {ms:.3f} ms ({queued:.3f} ms a call when 10 "
+              f"calls are queued back to back), the kernel it replaces read "
+              f"{K5_EARLIER_MS[n_pad]:.3f} ms", flush=True)
         if not (bit_equal or err <= K5_MAX_ABS_ERR):
             raise AssertionError(f"scatter differs at n_rows={n_rows}: "
                                  f"{err:g}")
+        if n_pad == 41 and not ms < lms:
+            raise AssertionError(f"scatter at n_rows={n_rows}: {ms:.3f} ms, "
+                                 f"not under index_add_'s {lms:.3f} ms")
         M, C = upd.shape
         report.add("scatter", f"M={M} C={C} n_rows={n_rows}", ms, pms, err,
                    nbytes(idx, upd) + 4 * n_rows * C, M * C, "fp32",
@@ -713,8 +921,39 @@ def phase_scatter(torch, report):
     row = report.rows["scatter"]
     print(f"kernel scatter: the three calls of a training step take "
           f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, index_add_ "
-          f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms",
+          f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+          f"({100 * row['bound_ms'] / row['ms']:.1f}% reached); the kernel "
+          f"it replaces read {sum(K5_EARLIER_MS.values()):.3f} ms",
           flush=True)
+
+    # idx and upd are the 41^3 inputs from here on
+    lines = []
+    hot = idx.clone()
+    hot[:300000] = n_rows // 2 + 5            # one cell with 300,000 rows
+    hot = torch.sort(hot).values
+    lines.append(scatter_case(torch, sc, "a cell of 300,000 rows", hot, upd,
+                              n_rows, True, timed=True))
+    small = slice(0, 1 << 18)
+    one = torch.full_like(idx[small], 4242)
+    lines.append(scatter_case(torch, sc, "every row on one cell", one,
+                              upd[small], n_rows, True))
+    out_of_range = torch.cat([torch.full_like(idx[:1 << 17], -5),
+                              torch.full_like(idx[:1 << 17], n_rows)])
+    lines.append(scatter_case(torch, sc, "every row out of range",
+                              out_of_range, upd[small], n_rows, False))
+    mixed = torch.sort(torch.cat([out_of_range[::2], idx[:1 << 17]])).values
+    lines.append(scatter_case(torch, sc, "half the rows out of range", mixed,
+                              upd[small], n_rows, True))
+    rng = np.random.default_rng(3)
+    idx8 = torch.tensor(np.sort(rng.integers(0, 3000, 200001)).astype(
+        np.int32), device=DEVICE)
+    upd8 = torch.tensor(rng.normal(size=(200001, 8)).astype(np.float32),
+                        device=DEVICE)
+    lines.append(scatter_case(torch, sc, "C = 8", idx8, upd8, 3000, False))
+    lines.append(scatter_case(torch, sc, "no rows", idx8[:0], upd8[:0], 100,
+                              True))
+    print("kernel scatter, other inputs, each bit-equal to the plain version "
+          "on the CPU and from run to run: " + "; ".join(lines), flush=True)
 
 
 def nerf_config(n_steps):

@@ -121,11 +121,13 @@ def test_knn_radius_plain_vs_pallas(k):
                                   np.sort(ji_np[clear], 1))
 
 
-def test_candidate_tiles_prune_exactly():
-    """The tile lists the CUDA kernels walk (one QB-query block each) hold
-    every in-radius point: walking only the listed tiles in list order, as
-    csrc/knn_cells.cu does, reproduces the plain count and top-k exactly,
-    sentinel queries at 1e9 and a ragged last block included."""
+@pytest.mark.parametrize("qb", [16, 64, 128, 256])
+def test_candidate_tiles_prune_exactly(qb):
+    """The tile lists the CUDA kernels walk (one block of qb queries each:
+    K2 takes 16 or 64, K3 256) hold every in-radius point: walking only the listed
+    tiles in list order, as csrc/knn_cells.cu does, reproduces the plain
+    count and top-k exactly, sentinel queries at 1e9 and a ragged last block
+    included."""
     rng = np.random.default_rng(9)
     q, p = _cloud(rng, 600, 4000, spread=0.03, scale=0.3)
     q[::37] = 1e9
@@ -134,16 +136,21 @@ def test_candidate_tiles_prune_exactly():
     # Morton-ordered queries, as the render hands them over
     order = torch.argsort(_morton(q, tabs), stable=True)
     qt = torch.tensor(q)[order].contiguous()
-    lst, cnt = tkc.candidate_tiles(qt, tabs, r2)
+    lst, cnt = tkc.candidate_tiles(qt, tabs, r2, qb=qb)
     pts_t = tabs["pts_t"].numpy()
     T, _, pts = pts_t.shape
-    assert lst.shape == (-(-600 // tkc.QB), T)
+    assert lst.shape == (-(-600 // qb), T)
+    assert (tkc.QB, tkc.count_block(7392), tkc.count_block(131072)) == (
+        256, 16, 64)
+    if qb == tkc.QB:                      # the default is K3's block
+        dl, dc = tkc.candidate_tiles(qt, tabs, r2)
+        assert torch.equal(dl, lst) and torch.equal(dc, cnt)
     assert 0 < cnt.min() < T
     want_c = tkc.knn_count_plain(qt, tabs["pts_sorted"], r2).numpy()
     want_d, want_i = tkc.knn_radius_plain(qt, tabs["pts_sorted"], k, r2)
     qn = qt.numpy()
     for m in range(qn.shape[0]):
-        b = m // tkc.QB
+        b = m // qb
         tiles = lst[b, :cnt[b]].numpy()
         assert (np.diff(tiles) > 0).all()
         cand = pts_t[tiles].transpose(0, 2, 1).reshape(-1, 3)
@@ -155,6 +162,85 @@ def test_candidate_tiles_prune_exactly():
         n = len(o)
         np.testing.assert_array_equal(d[sel][o], want_d[m, :n].numpy())
         np.testing.assert_array_equal(ids[sel][o], want_i[m, :n].numpy())
+
+
+def _count_listed(qt, tabs, r2, qb):
+    """K2 as the kernel computes it: per block of qb queries, the count
+    over the listed tiles only."""
+    lst, cnt = tkc.candidate_tiles(qt, tabs, r2, qb=qb)
+    pts = tabs["pts_t"].shape[2]
+    out = []
+    for b in range(lst.shape[0]):
+        tiles = lst[b, :cnt[b]].long()
+        cand = tabs["pts_sorted"].reshape(-1, pts, 3)[tiles].reshape(-1, 3)
+        out.append(tkc.knn_count_plain(qt[b * qb:(b + 1) * qb], cand, r2)
+                   if len(tiles) else
+                   torch.zeros(len(qt[b * qb:(b + 1) * qb]),
+                               dtype=torch.int32))
+    return torch.cat(out), cnt
+
+
+def test_count_over_listed_tiles_same_for_every_qb():
+    """A smaller query block lists fewer tiles and counts the same: the
+    counts over the listed tiles at qb 16, 64, 128 and 256 all equal the
+    brute-force count (a ragged M, sentinel queries, a sentinel-only
+    block)."""
+    rng = np.random.default_rng(12)
+    q, p = _cloud(rng, 1000, 6000, spread=0.02, scale=0.3)
+    q[::41] = 1e9
+    r2 = 0.004
+    tabs = tkc.build_point_tables(torch.tensor(p))
+    order = torch.argsort(_morton(q, tabs), stable=True)
+    qt = torch.cat([torch.tensor(q)[order],
+                    torch.full((70, 3), 1e9)]).contiguous()
+    want = tkc.knn_count_plain(qt, tabs["pts_sorted"], r2)
+    assert int(want.max()) > 8
+    assert (want[-70:] == (-6000) % tkc.PTS).all()    # the pad rows
+    listed = {}
+    for qb in (16, 64, 128, 256):
+        got, cnt = _count_listed(qt, tabs, r2, qb)
+        assert torch.equal(got, want), qb
+        listed[qb] = int(cnt.sum()) * qb
+    assert listed[16] < listed[64] < listed[128] < listed[256]
+
+
+@pytest.mark.parametrize("qb", [16, 64, 128, 256])
+def test_points_at_exactly_the_radius_count(qb):
+    """Points at exactly d2 == r2 count (the <= of the tile test and of
+    the distance test): lattice coordinates scaled by a power of two make
+    every distance exact in fp32, r2 = 9 steps^2 is met by the offsets
+    (3, 0, 0) and (2, 2, 1), and the count over the listed tiles equals the
+    integer count."""
+    rng = np.random.default_rng(13)
+    step = 2.0 ** -4
+    pi = np.unique(rng.integers(0, 24, size=(5000, 3)), axis=0)
+    qi = rng.integers(0, 24, size=(700, 3))
+    p = (pi * step).astype(np.float32)
+    q = (qi * step).astype(np.float32)
+    r2 = 9 * step * step
+    tabs = tkc.build_point_tables(torch.tensor(p))
+    order = torch.argsort(_morton(q, tabs), stable=True)
+    qt = torch.tensor(q)[order].contiguous()
+    qi = qi[order.numpy()]
+    d2i = ((qi[:, None, :] - pi[None]) ** 2).sum(-1)
+    want = (d2i <= 9).sum(1)
+    on_edge = (d2i == 9).sum(1)
+    assert on_edge.min() >= 0 and on_edge.sum() > 5000
+    plain = tkc.knn_count_plain(qt, tabs["pts_sorted"], r2).numpy()
+    np.testing.assert_array_equal(plain, want)
+    got, cnt = _count_listed(qt, tabs, r2, qb)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(cnt.min()) < tabs["pts_t"].shape[0]     # tiles are pruned
+    # a tile whose box sits at exactly gap^2 == r2 from the block's box is
+    # listed, and is not at the next smaller radius
+    edge = {"t_lo": torch.tensor([[11.0, 0, 0], [10, 10, 9]]) * step,
+            "t_hi": torch.tensor([[12.0, 8, 8], [12, 12, 12]]) * step}
+    box = torch.tensor([[0.0, 0, 0], [8, 8, 8], [3, 1, 4]]) * step
+    lst, cnt = tkc.candidate_tiles(box, edge, r2, qb=qb)
+    assert cnt.tolist() == [2] and lst[0].tolist() == [0, 1]
+    _, cnt = tkc.candidate_tiles(box, edge, float(np.nextafter(
+        np.float32(r2), np.float32(0))), qb=qb)
+    assert cnt.tolist() == [0]
 
 
 def _morton(q, tabs):
