@@ -29,58 +29,19 @@
 //   * tiles are staged by cp.async in rounds of 1,024 points, the next
 //     round's copy in flight while this round is scanned.
 //   * counts are integers, so every split of the work is exact.
-// K3 keeps an ascending register top-k of the points with d2 <= r2, exact
-// fp32 d2 (the TPU kernel's 11-bit packed keys are not reproduced), ties to
-// the lower sorted index, empty slots (+inf, 0): one block of 256 queries,
-// one thread a query, the listed tiles staged 8 at a time and scanned in
-// ascending order (the ties depend on it).
-#include "knn_tiles.cuh"
+// K3 keeps the exact top-k of the points with d2 <= r2 (exact fp32 d2; the
+// TPU kernel's 11-bit packed keys are not reproduced), ascending, ties to
+// the lower sorted index, empty slots (+inf, 0): the top-k scan of
+// knn_scan.cuh, several lanes a query, each lane's partial top-k merged
+// exactly, tiles beyond a warp's kth distance skipped. Bound on the H100:
+// the distance evaluations of the pairs it must look at, as K2's; what it
+// adds is a compare and, rarely, an insert a pair, and the lanes' merge.
+#include "knn_scan.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kQB = 256;       // K3: queries per block, one thread each
-constexpr int kStage = 8;      // K3: candidate tiles staged per round
 constexpr int kLanesMany = 4;  // K2: lanes per query,
-constexpr int kLanesFew = 16;  // and in a call of fewer than
-constexpr int kFewQueries = 32768;  // this many queries
-constexpr int kRoundPts = 1024;     // K2: points staged per round
-
-// one asynchronous copy of kBytes (4 or 16) from global to shared memory
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  if (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(gmem));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-                 "l"(gmem));
-  }
-}
-
-// K2: start the copy of tiles list[c0 .. c0 + n) into buf as n consecutive
-// [3, pts] slabs (16 bytes a copy when pts is a multiple of 4).
-__device__ __forceinline__ void stage_async(float* buf, const float* pts_t,
-                                            const int* list, int c0, int n,
-                                            int pts) {
-  const int per = 3 * pts;
-  if ((pts & 3) == 0) {
-    const int per4 = per >> 2;
-    for (int t = threadIdx.x; t < n * per4; t += kThreads) {
-      const int s = t / per4, o = (t - s * per4) << 2;
-      cp_async<16>(buf + s * per + o,
-                   pts_t + (size_t)list[c0 + s] * per + o);
-    }
-  } else {
-    for (int t = threadIdx.x; t < n * per; t += kThreads) {
-      const int s = t / per, o = t - s * per;
-      cp_async<4>(buf + s * per + o,
-                  pts_t + (size_t)list[c0 + s] * per + o);
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+constexpr int kLanesFew = 16;  // and in a call of fewer than kFewQueries
 
 template <int kLanes>
 __global__ void __launch_bounds__(kThreads) knn_count_kernel(
@@ -154,69 +115,6 @@ __global__ void __launch_bounds__(kThreads) knn_count_kernel(
   if (live && sub == 0) out[m] = cnt;
 }
 
-// K3: stage tiles list[c0 .. c0 + n) into sp as n consecutive [3, pts]
-// slabs.
-__device__ __forceinline__ void stage_tiles(float* sp, const float* pts_t,
-                                            const int* list, int c0, int n,
-                                            int pts) {
-  const int per = 3 * pts;
-  for (int t = threadIdx.x; t < n * per; t += kQB) {
-    const int s = t / per;
-    sp[t] = pts_t[(size_t)list[c0 + s] * per + (t - s * per)];
-  }
-}
-
-template <int K>
-__global__ void __launch_bounds__(kQB) knn_radius_kernel(
-    const float* __restrict__ q, int M, const float* __restrict__ pts_t,
-    const float* __restrict__ t_lo, const float* __restrict__ t_hi, int T,
-    int pts, float r2, float* __restrict__ out_d, int* __restrict__ out_i) {
-  extern __shared__ float sp[];
-  __shared__ TileScratch<kQB> sc;
-  const int m = blockIdx.x * kQB + threadIdx.x;
-  const bool live = m < M;
-  const float qx = live ? q[3 * m] : 0.f;
-  const float qy = live ? q[3 * m + 1] : 0.f;
-  const float qz = live ? q[3 * m + 2] : 0.f;
-  query_boxes<kQB>(qx, qy, qz, live, sc);
-  float bd[K];
-  int bi[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    bd[j] = __int_as_float(0x7f800000);  // +inf
-    bi[j] = 0;
-  }
-  for (int t0 = 0; t0 < T; t0 += kListCap) {
-    const int n_cand = list_tiles<kQB>(t_lo, t_hi, t0, T, r2, sc);
-    const int* list = sc.list;
-    for (int c0 = 0; c0 < n_cand; c0 += kStage) {
-      const int n = min(kStage, n_cand - c0);
-      __syncthreads();
-      stage_tiles(sp, pts_t, list, c0, n, pts);
-      __syncthreads();
-      if (live) {
-        for (int s = 0; s < n; ++s) {
-          const float* px = sp + s * 3 * pts;
-          const int base = list[c0 + s] * pts;
-          for (int j = 0; j < pts; ++j) {
-            const float d =
-                sq_dist(qx, qy, qz, px[j], px[pts + j], px[2 * pts + j]);
-            if (d <= r2) topk_insert<K>(bd, bi, d, base + j);
-          }
-        }
-      }
-    }
-    __syncthreads();  // done with the list before the next one is made
-  }
-  if (live) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      out_d[(size_t)m * K + j] = bd[j];
-      out_i[(size_t)m * K + j] = bi[j];
-    }
-  }
-}
-
 }  // namespace
 
 // K2's queries per block in a call of M queries
@@ -225,46 +123,33 @@ extern "C" int knn_count_block(int M) {
 }
 
 // q [M, 3]; pts_t [T, 3, pts]; t_lo, t_hi [T, 3]: the tiles' boxes; out [M].
-// lanes: 0, or the lanes per query to take whatever M is (4 or 16).
 extern "C" int knn_count_launch(const float* q, int M, const float* pts_t,
                                 const float* t_lo, const float* t_hi, int T,
-                                int pts, float r2, int lanes, int* out,
-                                void* stream) {
+                                int pts, float r2, int* out, void* stream) {
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lanes == 0) lanes = M < kFewQueries ? kLanesFew : kLanesMany;
-  const int qb = kThreads / lanes;
-  const dim3 grid((M + qb - 1) / qb);
-  if (lanes == kLanesFew) {
+  const dim3 grid((M + knn_count_block(M) - 1) / knn_count_block(M));
+  if (M < kFewQueries) {
     knn_count_kernel<kLanesFew><<<grid, kThreads, 0, s>>>(
         q, M, pts_t, t_lo, t_hi, T, pts, r2, out);
-  } else if (lanes == kLanesMany) {
+  } else {
     knn_count_kernel<kLanesMany><<<grid, kThreads, 0, s>>>(
         q, M, pts_t, t_lo, t_hi, T, pts, r2, out);
-  } else {
-    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+// K3's lanes per query in a call of M queries (queries a block: 256 /
+// lanes)
+extern "C" int knn_radius_lanes(int M) { return topk_lanes(M); }
+
+// q [M, 3] (Morton-ordered); the tables as K2's; out_d, out_i [M, k];
+// tiles_out: null, or the tiles each warp scanned.
 extern "C" int knn_radius_launch(const float* q, int M, const float* pts_t,
                                  const float* t_lo, const float* t_hi, int T,
                                  int pts, float r2, int k, float* out_d,
-                                 int* out_i, void* stream) {
-  if (M <= 0) return 0;
-  const dim3 grid((M + kQB - 1) / kQB);
-  const size_t smem = sizeof(float) * kStage * 3 * pts;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // beside the listing's static scratch the largest tiles pass 48 KB
-#define KNN_RADIUS_CALL(K)                                                  \
-  if (smem + sizeof(TileScratch<kQB>) > 48 * 1024) {                        \
-    cudaFuncSetAttribute(knn_radius_kernel<K>,                              \
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,       \
-                         (int)smem);                                        \
-  }                                                                         \
-  knn_radius_kernel<K><<<grid, kQB, smem, s>>>(q, M, pts_t, t_lo, t_hi, T,  \
-                                               pts, r2, out_d, out_i)
-  KNN_DISPATCH_K(k, KNN_RADIUS_CALL)
-#undef KNN_RADIUS_CALL
-  return (int)cudaGetLastError();
+                                 int* out_i, int* tiles_out, void* stream) {
+  return launch_topk<false>(q, nullptr, nullptr, M, pts_t, t_lo, t_hi, T,
+                            pts, 0, nullptr, r2, k, out_d, out_i, tiles_out,
+                            stream);
 }

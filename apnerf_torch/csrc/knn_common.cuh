@@ -16,30 +16,6 @@ __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
                    __fmul_rn(dz, dz));
 }
 
-// Insert (d, idx) into the ascending register list bd/bi of length K.
-// Strict compares: a candidate equal to an entry goes after it, so with
-// candidates visited in increasing index order ties keep the lower index
-// (the order a stable sort on d2 gives).
-template <int K>
-__device__ __forceinline__ void topk_insert(float (&bd)[K], int (&bi)[K],
-                                            float d, int idx) {
-  if (!(d < bd[K - 1])) return;
-#pragma unroll
-  for (int s = K - 1; s > 0; --s) {
-    if (d < bd[s - 1]) {
-      bd[s] = bd[s - 1];
-      bi[s] = bi[s - 1];
-    } else if (d < bd[s]) {
-      bd[s] = d;
-      bi[s] = idx;
-    }
-  }
-  if (d < bd[0]) {
-    bd[0] = d;
-    bi[0] = idx;
-  }
-}
-
 // Dispatch a runtime k in [1, 16] to a template instance KERNEL_CALL<K>.
 #define KNN_DISPATCH_K(k, CALL)                                              \
   switch (k) {                                                               \

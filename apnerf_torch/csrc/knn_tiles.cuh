@@ -26,20 +26,25 @@ struct Box {
   float lo[3], hi[3];
 };
 
-__device__ __forceinline__ bool box_in_radius(const Box& b,
-                                              const float* __restrict__ t_lo,
-                                              const float* __restrict__ t_hi,
-                                              int tile, float r2) {
+__device__ __forceinline__ float box_gap2(const Box& b,
+                                          const float* __restrict__ t_lo,
+                                          const float* __restrict__ t_hi,
+                                          int tile) {
   float g[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     g[a] = fmaxf(fmaxf(__fsub_rn(b.lo[a], t_hi[3 * tile + a]),
                        __fsub_rn(t_lo[3 * tile + a], b.hi[a])), 0.f);
   }
-  const float g2 = __fadd_rn(__fadd_rn(__fmul_rn(g[0], g[0]),
-                                       __fmul_rn(g[1], g[1])),
-                             __fmul_rn(g[2], g[2]));
-  return g2 <= r2;
+  return __fadd_rn(__fadd_rn(__fmul_rn(g[0], g[0]), __fmul_rn(g[1], g[1])),
+                   __fmul_rn(g[2], g[2]));
+}
+
+__device__ __forceinline__ bool box_in_radius(const Box& b,
+                                              const float* __restrict__ t_lo,
+                                              const float* __restrict__ t_hi,
+                                              int tile, float r2) {
+  return box_gap2(b, t_lo, t_hi, tile) <= r2;
 }
 
 // The box of the warp's live queries (empty: lo = +inf, hi = -inf, within

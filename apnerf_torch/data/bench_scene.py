@@ -33,6 +33,25 @@ def bench_config(P, J, F, **mode):
     return TemporalPointsConfig(**base)
 
 
+def bench_heads(cfg, generator):
+    """The backbone heads that bench.py:build_model draws (``rgbnet``,
+    ``densitynet``, a ``timenet`` of [t_dim, 128, 60]), drawn from
+    ``generator``: the ``tineuvox_params`` of ``init_params``, a JAX
+    pytree of numpy arrays."""
+    from torch import nn
+
+    from ..models.tineuvox import RGBNet
+    from ..ops.nn import MLP
+    from ..utils.checkpoint import params_to_jax
+    F = cfg.feat_dim
+    heads = nn.ModuleDict({"rgbnet": RGBNet(F, cfg.views_ch),
+                           "densitynet": MLP([F, 1]),
+                           "timenet": MLP([cfg.t_dim, 128, 60])})
+    for net in heads.values():
+        net.reset_parameters_(generator)
+    return params_to_jax(heads.state_dict())
+
+
 def bench_model(device=None, P=10_000, J=24, F=128):
     """The bench scene as a model with random weights from a seed and its
     render state, on ``device`` (``None``: the CUDA device): (model,
@@ -42,11 +61,11 @@ def bench_model(device=None, P=10_000, J=24, F=128):
     from ..models import temporal_points as tp
     pcd, joints, bones, feat = bench_scene(P, J, F)
     cfg = bench_config(P, J, F)
+    gen = torch.Generator().manual_seed(1)
     model = tp.init_params(cfg, pcd, joints, bones, feat,
                            np.full(P, 0.5, np.float32),
                            np.full((P, 3), 0.5, np.float32),
-                           timenet_dims=[cfg.t_dim, 128, 60],
-                           generator=torch.Generator().manual_seed(1),
+                           bench_heads(cfg, gen), generator=gen,
                            device=device)
     state = tp.init_state(cfg, pcd, joints, bones, pcd[::40],
                           pcd.min(0) - 0.1, pcd.max(0) + 0.1, device=device)

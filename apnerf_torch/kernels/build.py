@@ -26,15 +26,17 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types; each returns an int (a launch:
 # cudaGetLastError())
 SIGNATURES = {
-    # q, p, M, P, k, out_d2, out_idx, stream
-    "knn_brute_launch": [P, P, I, I, I, P, P, P],
-    # q, M, pts_t, t_lo, t_hi, T, pts_per_tile, r2, lanes, out_cnt, stream
-    "knn_count_launch": [P, I, P, P, P, I, I, F, I, P, P],
+    # q, qorder, qpos, M, pts_t, t_lo, t_hi, T, pts_per_tile, P, perm, k,
+    # out_d2, out_idx, tiles_out, stream
+    "knn_brute_launch": [P, P, P, I, P, P, P, I, I, I, P, I, P, P, P, P],
+    # q, M, pts_t, t_lo, t_hi, T, pts_per_tile, r2, out_cnt, stream
+    "knn_count_launch": [P, I, P, P, P, I, I, F, P, P],
     # q, M, pts_t, t_lo, t_hi, T, pts_per_tile, r2, k, out_d2, out_idx,
-    # stream
-    "knn_radius_launch": [P, I, P, P, P, I, I, F, I, P, P, P],
-    # M -> K2's queries per block
+    # tiles_out, stream
+    "knn_radius_launch": [P, I, P, P, P, I, I, F, I, P, P, P, P],
+    # M -> K2's queries per block, K3's (and K1's) lanes per query
     "knn_count_block": [I],
+    "knn_radius_lanes": [I],
     # rel, feat, w, image, b1, bl, M, K, F, n_pe, P_pad, n_layers, out,
     # stream
     "featmlp_launch": [P, P, P, P, P, P, I, I, I, I, I, I, P, P],

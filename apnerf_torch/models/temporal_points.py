@@ -163,16 +163,23 @@ def _point_segment_distance(p, a, b, eps=1e-12) -> np.ndarray:
     return np.linalg.norm(p[None] - closest, axis=-1)
 
 
+HEADS = ("rgbnet", "densitynet", "timenet")
+
+
 def init_params(cfg: TemporalPointsConfig, canonical_pcd, joints, bones,
                 canonical_feat, canonical_alpha, canonical_rgbs,
-                timenet_dims: Sequence[int], generator: torch.Generator,
+                tineuvox_params, generator: torch.Generator,
                 noise_gamma: float = 1e-2, device=None) -> TemporalPoints:
-    """A stage-2 model with fresh networks drawn from ``generator``, on
-    ``device`` (``None``: the CUDA device; raises without one).
+    """A stage-2 model on ``device`` (``None``: the CUDA device; raises
+    without one), the counterpart of the JAX package's ``init_params``.
 
-    Skinning weights from point-to-bone distances as the JAX package's
-    ``init_params``; the heads are new (the JAX version copies them from
-    the trained backbone)."""
+    Skinning weights from point-to-bone distances; ``rgbnet``,
+    ``densitynet`` and ``timenet`` copied from the trained backbone's
+    ``tineuvox_params`` (a mapping of the three in the JAX pytree layout,
+    numpy leaves, as a ``fine_last.pkl`` holds them) and drawn again from
+    ``generator`` only under ``cfg.re_init_mlps``; ``feat_net``, the warp's
+    ``transform_net`` and ``pose_embedding_net`` drawn from ``generator``."""
+    from ..utils.checkpoint import mlp_dims, params_from_jax
     device = resolve_device(device)
     P = cfg.n_points
     a = np.array([joints[b[0]] for b in bones], np.float64)
@@ -180,7 +187,8 @@ def init_params(cfg: TemporalPointsConfig, canonical_pcd, joints, bones,
     d = _point_segment_distance(canonical_pcd, a, b)              # [J-1, P]
     w = (1.0 / (0.5 * np.e ** d + cfg.eps)).T
     w = np.concatenate([np.zeros((P, 1)), w], axis=-1)
-    model = TemporalPoints(cfg, timenet_dims)
+    heads = params_from_jax({name: tineuvox_params[name] for name in HEADS})
+    model = TemporalPoints(cfg, mlp_dims(heads, "timenet"))
     with torch.no_grad():
         model.weights.copy_(torch.as_tensor(w, dtype=F32))
         model.joints.copy_(torch.as_tensor(np.asarray(joints), dtype=F32))
@@ -195,10 +203,18 @@ def init_params(cfg: TemporalPointsConfig, canonical_pcd, joints, bones,
             np.asarray(canonical_alpha), dtype=F32))
         model.direct_eps.fill_(0.05)
     for net in (model.forward_warp.transform_net, model.feat_net,
-                model.rgbnet, model.densitynet, model.timenet,
                 model.pose_embedding_net):
         if net is not None:
             net.reset_parameters_(generator)
+    own = model.state_dict()
+    missing = [k for k in own if k.split(".")[0] in HEADS and k not in heads]
+    if missing or set(heads) - set(own):
+        raise ValueError(f"tineuvox_params: heads of another layout (missing "
+                         f"{missing}, unexpected {sorted(set(heads) - set(own))})")
+    model.load_state_dict(heads, strict=False)
+    if cfg.re_init_mlps:
+        for name in HEADS:
+            getattr(model, name).reset_parameters_(generator)
     return model.to(device)
 
 

@@ -10,15 +10,21 @@ weights from a seed) at 400 x 400 in 8192-ray chunks through
 share (the union of the kernels' intervals), the share of device time of
 the hand-written kernels (K2 / K3 the k-NN, K4 ``featmlp``, K6 ``agg``),
 the kernels a frame, and the kernels that take the most device time. The
-K2 / K3 wrappers run inside profiler ranges: whatever they launch besides
-their own kernel (the PyTorch operations of the candidate-tile listing,
-before the kernels listed their tiles themselves) is counted and timed as
-their front end. ``--trace`` also writes the Chrome traces there.
+K2 / K3 wrappers run inside profiler ranges; the Chrome trace says which
+runtime calls each range made and, by their CUPTI correlation ids, which
+kernels those calls launched. (``prof.events()`` cannot be asked this: it
+ties a runtime call to the kernels of the operation whose External id
+equals the call's correlation id, two numberings that overlap in the
+first profile of a process, so it shows unrelated PyTorch kernels under a
+range; the trace line counts such calls.) ``--trace`` keeps the Chrome
+traces there.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import tempfile
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -32,9 +38,11 @@ from ..train.profile_stage1 import _kernel_intervals, _union_us
 H = W = 400
 FOCAL = 555.0
 CHUNK = 8192
-# substrings of the hand-written kernels' names (csrc/*.cu)
+# substrings of the hand-written kernels' names (csrc/*.cu); K3 is the
+# top-k scan of csrc/knn_scan.cuh, which K1 shares (K1 runs at a load, not
+# inside the profiled frames)
 OWN = {"K4 featmlp": ("RowFront",), "K6 agg": ("SubgroupFront",),
-       "K2 knn_count": ("knn_count",), "K3 knn_radius": ("knn_radius",)}
+       "K2 knn_count": ("knn_count",), "K3 knn_radius": ("knn_topk_kernel",)}
 
 
 def _group(name: str) -> str:
@@ -68,29 +76,47 @@ def wrapper_ranges():
         yield
 
 
-def _launched_under(event):
-    """The device kernels launched under a CPU event of the profile, its
-    child operations included."""
-    out = list(event.kernels)
-    for child in event.cpu_children:
-        out += _launched_under(child)
-    return out
-
-
-def front_end(prof):
-    """By wrapper range: calls, and the count, device microseconds and
-    names of the PyTorch kernels launched inside it. (A kernel launched
-    through ctypes, as the hand-written ones are, is tied to no range.)"""
-    rows = {name: dict(calls=0, other=0, other_us=0.0, names=defaultdict(int))
+def range_launches(path):
+    """By wrapper range, from the Chrome trace at ``path``: the ranges, the
+    runtime calls made inside them (on the range's thread, within its
+    span), the kernels of those calls' correlation ids by group, and the
+    calls whose correlation id is also the External id of an operation
+    with kernels (the ties ``prof.events()`` reports), with those
+    operations' names."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    kernels, op_kernels, owner = defaultdict(list), defaultdict(int), {}
+    for e in events:
+        args = e.get("args", {})
+        if e.get("cat") == "kernel":
+            kernels[args.get("correlation")].append(_group(e["name"]))
+            op_kernels[args.get("External id")] += 1
+        elif e.get("cat") in ("cpu_op", "user_annotation") and \
+                "External id" in args:
+            owner[args["External id"]] = e["name"]
+    ranges = defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in \
+                WRAPPERS.values():
+            ranges[e["tid"]].append(e)
+    rows = {name: dict(ranges=0, calls=0, kernels=defaultdict(int),
+                       clashes=defaultdict(int))
             for name in WRAPPERS.values()}
-    for e in prof.events():
-        if e.name in rows and e.device_type == torch.autograd.DeviceType.CPU:
-            row = rows[e.name]
-            row["calls"] += 1
-            for k in _launched_under(e):
-                row["other"] += 1
-                row["other_us"] += k.duration
-                row["names"][k.name] += 1
+    for rs in ranges.values():
+        for r in rs:
+            rows[r["name"]]["ranges"] += 1
+    for e in events:
+        if e.get("cat") not in ("cuda_runtime", "cuda_driver"):
+            continue
+        for r in ranges.get(e["tid"], ()):
+            if r["ts"] <= e["ts"] <= r["ts"] + r["dur"]:
+                row, corr = rows[r["name"]], e["args"].get("correlation")
+                row["calls"] += 1
+                for g in kernels.get(corr, ()):
+                    row["kernels"][g] += 1
+                if op_kernels.get(corr):
+                    row["clashes"][owner.get(corr, "?")] += 1
     return rows
 
 
@@ -174,22 +200,29 @@ def main(argv=None) -> int:
         for g, t in sorted(by_group.items(), key=lambda x: -x[1]):
             print(f"profile_render {mode}: group {g}: {t / 1e3 / n:.2f} "
                   f"ms/frame ({t / dev_total:.3f} of device time)")
-        for name, row in front_end(prof).items():
-            top = sorted(row["names"].items(), key=lambda x: -x[1])[:3]
-            print(f"profile_render {mode}: {name}: {row['calls'] // n} calls "
-                  f"a frame, {row['other'] / n:.1f} PyTorch kernels a frame "
-                  f"launched inside it (the tile listing, before the "
-                  f"kernels listed their tiles themselves), "
-                  f"{row['other_us'] / 1e3 / n:.2f} ms of device time a "
-                  f"frame{''.join(f'; {c} x {k[:60]}' for k, c in top)}")
         for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
             print(f"profile_render {mode}: kernel {t / 1e3 / n:7.2f} "
                   f"ms/frame in {count[name] // n:5d} launches  "
                   f"{name[:100]}")
-        if args.trace:
-            os.makedirs(args.trace, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(
-                args.trace, f"render_{mode}_trace.json"))
+        out_dir = args.trace or tempfile.mkdtemp()
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"render_{mode}_trace.json")
+        prof.export_chrome_trace(path)
+        for name, row in range_launches(path).items():
+            own = ", ".join(f"{c / n:.1f} {g}" for g, c in
+                            row["kernels"].items() if g != "other")
+            clash = sum(row["clashes"].values())
+            print(f"profile_render {mode}: {name}: {row['ranges'] / n:.0f} "
+                  f"calls a frame, {row['calls'] / n:.1f} runtime calls a "
+                  f"frame inside, launching {own or 'no own kernel'}"
+                  f" and {row['kernels']['other'] / n:.1f} PyTorch kernels "
+                  f"a frame; {clash / n:.1f} of the calls a frame carry a "
+                  f"correlation id that is also an operation's External id "
+                  f"({', '.join(sorted(row['clashes']))[:120] or 'none'}: "
+                  f"prof.events() ties that operation's kernels to them)")
+        if not args.trace:
+            os.remove(path)
+            os.rmdir(out_dir)
     return 0
 
 

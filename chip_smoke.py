@@ -12,8 +12,9 @@ and no result line is printed):
    source in parallel; K4's and K6's kernels must hold wgmma instructions
    (HGMMA in the library's SASS, read with the toolkit's ``cuobjdump``).
 3. kernel  -- each kernel against its plain PyTorch version at its main
-   path's shapes (K1-K3 exactly equal, K4's max and mean abs error under
-   ``K4_MAX_ABS_ERR`` / ``K4_MEAN_ABS_ERR``, printed beside a control
+   path's shapes (K1-K3 exactly equal, K4's max abs error under
+   ``K4_REL_MAX_ERR`` of max |h| and its mean under ``K4_MEAN_ABS_ERR`` and
+   ``K4_REL_MEAN_ERR`` of max |h|, printed beside a control
    reading), with the median of CUDA-event timed runs of each side; K4
    through ``featmlp_agg``, the entry the render calls. K5 (scatter) at
    the three stage-1 grid-gradient shapes: two runs bit-equal, and
@@ -23,11 +24,20 @@ and no result line is printed):
    that computes the same (``index_add_``), which K5 must beat at 42^3;
    then a cell of 300,000 rows (summed in chunks, in the plain version's
    order), rows all out of range, one cell holding every row, C = 8 in the
-   other layout, and the kernel's work items against ``item_plan``. K2 and
-   K3 also on a ragged M, a block of sentinel queries only, clouds of
-   10^5 and of 130 points, tiles of 32 and 512 points, and points at
-   exactly d2 == r2; K2's and K5's times beside those of the kernels they
-   replace and with 20 launches queued. K6 (agg) at the bench shape
+   other layout, and the kernel's work items against ``item_plan``. K1,
+   K2 and K3 also on a ragged M, a block of sentinel queries only, clouds
+   of 10^5 and of 130 points, tiles of 32 and 512 points, points at
+   exactly d2 == r2 and duplicate points (K3 at k = 12 too, K1 as
+   self-queries on the lattice and the duplicates at k = 1 to 16), each
+   also at 32,768 queries or more, where the kernels take fewer lanes a
+   query; on the small clouds the tiles each warp of K1 / K3 scanned
+   against ``topk_scan_model``. K1's, K2's, K3's and K5's times beside
+   those of the kernels they replace and with 20 launches queued; K1's and
+   K3's beside the library yardstick (``cdist`` + ``topk``). K1's, K2's
+   and K3's bounds count the pairs their warps scan, beside the pairs of
+   the tiles their blocks list (K1: within each block's final kth
+   distance) and, K1, the 10^8 pairs of a brute-force walk. K6 (agg) at
+   the bench shape
    (4480 subgroups of 16 members, 8 candidates) and with 12 candidates,
    ~10% of the slots invalid: ``kd2`` bit-equal, ``h`` finite and under
    ``K6_MAX_ABS_ERR`` / ``K6_MEAN_ABS_ERR``, beside the same control as
@@ -95,11 +105,14 @@ RADIUS = 0.01
 # the control's 2.02e-5 (the gate is near their geometric mean); foreground
 # render PSNR 160.3 / 161.0 dB (exact / shared) against the control
 # render's 143.9 / 144.7 dB. The max is one bf16 step of the last layer's
-# round times the heaviest neighbour's weight and depends on the draw (on
-# four other draws of the same shape: 2.7e-4 to 4.5e-4); the mean is what
-# tells a kernel that skips a round from a sound one.
-K4_MAX_ABS_ERR = 3.6e-4
+# round times the heaviest neighbour's weight: it depends on the draw (on
+# four other draws of the same shape: 2.7e-4 to 4.5e-4) and a bf16 step is
+# relative, so the max is held to one step of max |h| (2^-8), a ceiling as
+# K6's; the mean is what tells a kernel that skips a round from a sound
+# one, held both absolutely and, as K6's, relative to max |h|.
+K4_REL_MAX_ERR = 2.0 ** -8
 K4_MEAN_ABS_ERR = 1.5e-6
+K4_REL_MEAN_ERR = 1e-5
 PSNR_MIN_DB = 152.0
 KERNELS = [  # name, source, TPU kernel it replaces (pl.pallas_call line)
     ("knn_brute", "apnerf_torch/csrc/knn_brute.cu",
@@ -142,11 +155,13 @@ K6_REL_MEAN_ERR = 1e-5
 K4_EARLIER_MS = 4.461
 K6_EARLIER_MS = 4.077
 K6_EARLIER_KC12_MS = 6.483
-# What the kernels that K2 / K5 replace, and K3 behind the PyTorch tile
-# listing, read at the main paths' shapes on an NVIDIA H100 80GB HBM3,
-# 700 W: printed beside the new times.
+# What the kernels that K1 / K2 / K3 / K5 replace read at the main paths'
+# shapes on an NVIDIA H100 80GB HBM3, 700 W (K2 and K5 before their
+# redesign, K3 with one thread a query, K1 walking every point): printed
+# beside the new times.
 K2_EARLIER_MS = {7392: 0.755, 131072: 0.796}
-K3_EARLIER_MS = {8192: 0.828, 71680: 0.942}
+K3_EARLIER_MS = {8192: 0.573, 71680: 0.629}
+K1_EARLIER_MS = 0.448
 K5_EARLIER_MS = {161: 0.881, 81: 0.349, 41: 1.132}
 N_VIEWS = 3
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
@@ -365,23 +380,21 @@ def phase_kernels(torch, pcd, report):
     PAIR_FLOP = 8
 
     def pairs_examined(q, r2, qb, tables=tabs):
-        """Query-point pairs that K2 / K3 must look at for these queries:
-        those of the tiles within the radius of each block of qb queries."""
+        """Query-point pairs of the tiles within the radius of each block
+        of qb queries (K2's warps scan those of their own box: qb = the
+        warp's queries)."""
         _, cnt = kc.candidate_tiles(q, tables, r2, qb=qb)
         return int(cnt.sum()) * qb * tables["pts_t"].shape[2]
-
-    ms, (d, i) = cuda_ms(lambda: kb.knn_brute(p, p, 8))
-    pms, (pd, pi) = cuda_ms(lambda: kb.knn_brute_plain(p, p, 8))
-    if not (torch.equal(d, pd) and torch.equal(i, pi)):
-        raise AssertionError("knn_brute differs from its plain version")
-    report.add("knn_brute", "P=10000 k=8", ms, pms, 0.0,
-               nbytes(p, p, d, i), PAIR_FLOP * p.shape[0] ** 2, "fp32")
 
     from apnerf_torch.kernels import build
     lib = build.load_library()
     for n in (1, kc.FEW_QUERIES - 1, kc.FEW_QUERIES, 1 << 20):
-        if lib.knn_count_block(n) != kc.count_block(n):
-            raise AssertionError("knn_cells.count_block is not the kernel's")
+        if not (lib.knn_count_block(n) == kc.count_block(n)
+                and lib.knn_radius_lanes(n) == kc.topk_lanes(n)):
+            raise AssertionError("knn_cells.count_block / topk_lanes are not "
+                                 "the kernels'")
+
+    phase_knn_brute(torch, p, tabs, report, PAIR_FLOP)
     # group midpoints (7,392, prefilter radius) and samples (131,072)
     stepdist = 0.5 * 0.012
     thr = float((np.sqrt(RADIUS) + 31 / 2 * stepdist) ** 2)
@@ -393,19 +406,19 @@ def phase_kernels(torch, pcd, report):
         if not torch.equal(c, pc):
             raise AssertionError(f"knn_count differs at M={n}")
         qb = kc.count_block(n)
-        pairs = pairs_examined(q, r2, qb)
+        per_warp = 32 * qb // kc.THREADS
+        pairs = pairs_examined(q, r2, per_warp)
         report.add("knn_count", f"M={n}, {qb} queries a block", ms, pms, 0.0,
                    nbytes(q, tabs["pts_t"], tabs["t_lo"], tabs["t_hi"], c),
                    PAIR_FLOP * pairs, "fp32")
         print_front_end("knn_count", f"M={n}", ms, K2_EARLIER_MS[n],
                         lambda: kc.knn_count(q, tabs, r2), pairs,
-                        [(b, pairs_examined(q, r2, b)) for b in (256,)],
-                        PAIR_FLOP)
-        by_lanes = {lanes: queued_ms(lambda: kc.knn_count_cuda(
-            q, tabs, r2, lanes)) for lanes in (4, 16)}
-        print(f"kernel knn_count M={n}: queued, with 4 / 16 lanes a query "
-              f"(64 / 16 queries a block) whatever M is: {by_lanes[4]:.3f} / "
-              f"{by_lanes[16]:.3f} ms", flush=True)
+                        [(f"its {qb}-query blocks' listing",
+                          pairs_examined(q, r2, qb)),
+                         ("256 queries a block", pairs_examined(q, r2, 256))],
+                        PAIR_FLOP, basis=f"of the tiles within the radius "
+                        f"of each warp's {per_warp} queries, which its warps "
+                        f"scan")
 
     r2_sel = float((np.sqrt(RADIUS) + 15 * stepdist / 2) ** 2)
     for n, r2 in ((8192, r2_sel), (71680, RADIUS)):
@@ -415,13 +428,27 @@ def phase_kernels(torch, pcd, report):
             q, tabs["pts_sorted"], 8, r2))
         if not (torch.equal(d, pd) and torch.equal(i, pi)):
             raise AssertionError(f"knn_radius differs at M={n}")
-        pairs = pairs_examined(q, r2, kc.QB)
-        report.add("knn_radius", f"M={n} k=8", ms, pms, 0.0,
-                   nbytes(q, tabs["pts_t"], tabs["t_lo"], tabs["t_hi"], d, i),
-                   PAIR_FLOP * pairs, "fp32")
+        lms, _ = cuda_ms(lambda: cdist_topk(torch, q, tabs["pts_sorted"], 8,
+                                            r2))
+        qb = kc.radius_block(n)
+        scan = {}
+        kc.knn_radius_cuda(q, tabs, 8, r2, scan_out=scan)
+        pairs = scanned_pairs(scan, n, tabs)
+        report.add("knn_radius", f"M={n} k=8, {qb} queries a block", ms, pms,
+                   0.0, nbytes(q, tabs["pts_t"], tabs["t_lo"], tabs["t_hi"],
+                               d, i),
+                   PAIR_FLOP * pairs, "fp32", library_ms=lms)
         print_front_end("knn_radius", f"M={n} k=8", ms, K3_EARLIER_MS[n],
-                        lambda: kc.knn_radius(q, tabs, 8, r2), pairs, [],
-                        PAIR_FLOP)
+                        lambda: kc.knn_radius(q, tabs, 8, r2), pairs,
+                        [(f"its {qb}-query blocks' listing",
+                          pairs_examined(q, r2, qb)),
+                         ("256 queries a block", pairs_examined(q, r2, 256))],
+                        PAIR_FLOP, library_ms=lms,
+                        earlier="the one-thread-a-query kernel it replaces "
+                                "read")
+        print(f"kernel knn_radius M={n}: with k = 12, queued: "
+              f"{queued_ms(lambda: kc.knn_radius(q, tabs, 12, r2)):.3f} ms",
+              flush=True)
     # a generator of its own: the phases below keep their draws
     phase_knn_shapes(torch, p, tabs, queries,
                      torch.Generator(device="cpu").manual_seed(5))
@@ -433,23 +460,101 @@ def phase_kernels(torch, pcd, report):
 
 
 def print_front_end(name, shape, ms, earlier_ms, fn, pairs, other_pairs,
-                    pair_flop):
-    """K2's / K3's time beside what the kernel behind the PyTorch tile
-    listing read, the time of a launch with 20 queued, and the bound's
-    pairs at other block sizes (the earlier rows counted 256 queries a
-    block)."""
+                    pair_flop, library_ms=None,
+                    earlier="behind the PyTorch tile listing it read",
+                    basis="its warps scanned"):
+    """K1's / K2's / K3's time beside the earlier kernel's, the time of a
+    launch with 20 queued, the bound (on the pairs its warps scan) beside
+    the pairs of other bases (the earlier rows counted the tiles listed for
+    256 queries a block) and the library yardstick."""
     queued = queued_ms(fn)
     bound = 1e3 * pair_flop * pairs / PEAK_FLOPS["fp32"]
     others = "".join(
-        f"; at {qb} queries a block {n / 1e6:.1f} M pairs -> "
+        f"; on {what}: {n / 1e6:.1f} M pairs -> "
         f"{1e3 * pair_flop * n / PEAK_FLOPS['fp32']:.5f} ms"
-        for qb, n in other_pairs)
+        for what, n in other_pairs)
+    extra = ""
+    if library_ms is not None:
+        extra += (f"; library yardstick (cdist + topk, two calls, not the "
+                  f"same bits) {library_ms:.3f} ms, {library_ms / ms:.1f}x "
+                  f"the kernel's time, {library_ms / queued:.1f}x queued")
     print(f"kernel {name} {shape}: {ms:.3f} ms ({queued:.3f} ms a call when "
           f"20 calls are queued back to back); bound {bound:.5f} ms "
-          f"({pairs / 1e6:.1f} M pairs of the tiles its blocks list): "
+          f"({pairs / 1e6:.1f} M pairs {basis}): "
           f"{100 * bound / ms:.1f}% reached, {100 * bound / queued:.1f}% "
-          f"queued{others}; behind the PyTorch tile listing it read "
+          f"queued{others}{extra}; {earlier} "
           f"{earlier_ms:.3f} ms ({earlier_ms / ms:.1f}x)", flush=True)
+
+
+def cdist_topk(torch, q, p, k, r2=None):
+    """The library yardstick of K1 and K3: one ``cdist`` (no matrix-product
+    shortcut) and one ``topk``, K3's beyond-radius distances masked to +inf
+    in between; the distances, not their squares, so not the same bits."""
+    d = torch.cdist(q, p, compute_mode="donot_use_mm_for_euclid_dist")
+    if r2 is not None:
+        d.masked_fill_(d > float(np.sqrt(r2)), float("inf"))
+    return d.topk(k, dim=1, largest=False)
+
+
+def scanned_pairs(scan, M, tables):
+    """The query-point pairs K1's / K3's warps scanned: tiles a warp times
+    its queries times the points a tile."""
+    from apnerf_torch.kernels import knn_cells as kc
+    per_warp = 32 // kc.topk_lanes(M)
+    return int(scan["tiles"].sum()) * per_warp * tables["pts_t"].shape[2]
+
+
+def brute_scan_alone(torch, p, k):
+    """K1's kernel timed alone, its plan (``brute_plan``) made beforehand:
+    (ms, queued ms)."""
+    from apnerf_torch.kernels import knn_brute as kb
+    plan = kb.brute_plan(p, p)
+    launch = lambda: kb.launch_scan(p, plan, k)  # noqa: E731
+    ms, _ = cuda_ms(launch)
+    return ms, queued_ms(launch)
+
+
+def phase_knn_brute(torch, p, tabs, report, pair_flop):
+    """K1 at the load's shape: the canonical cloud's self-query (P = 10^4,
+    k = 8), bit-equal to its plain version; the whole wrapper timed (the
+    plan's Morton sort and tables included, as a load pays them) and the
+    kernel alone (the plan made beforehand). Its bound counts the pairs its
+    warps scanned; beside it the pairs of the tiles within each block's
+    final kth distance, through the plain listing, and the 10^8 pairs of a
+    brute-force walk."""
+    from apnerf_torch.kernels import knn_brute as kb, knn_cells as kc
+    P, k = p.shape[0], 8
+    ms, (d, i) = cuda_ms(lambda: kb.knn_brute(p, p, k))
+    pms, (pd, pi) = cuda_ms(lambda: kb.knn_brute_plain(p, p, k))
+    if not (torch.equal(d, pd) and torch.equal(i, pi)):
+        raise AssertionError("knn_brute differs from its plain version")
+    lms, _ = cuda_ms(lambda: cdist_topk(torch, p, p, k))
+    qb = kc.radius_block(P)
+    NB = -(-P // qb)
+    perm = tabs["perm"]
+    kth = torch.full((NB * qb,), float("-inf"), device=p.device)
+    kth[:P] = d[perm, k - 1]
+    _, cnt = kc.candidate_tiles(p[perm], tabs, kth.reshape(NB, qb).amax(1),
+                                qb=qb)
+    listed = int(cnt.sum()) * qb * tabs["pts_t"].shape[2]
+    scan = {}
+    kb.knn_brute_cuda(p, p, k, scan_out=scan)
+    pairs = scanned_pairs(scan, P, tabs)
+    report.add("knn_brute", f"P={P} k={k}, {qb} queries a block", ms, pms,
+               0.0, nbytes(p, d, i), pair_flop * pairs, "fp32",
+               library_ms=lms)
+    alone_ms, alone_q = brute_scan_alone(torch, p, k)
+    print_front_end("knn_brute", f"P={P} k={k}", ms, K1_EARLIER_MS,
+                    lambda: kb.knn_brute(p, p, k), pairs,
+                    [(f"the tiles within each {qb}-query block's final kth "
+                      f"distance", listed),
+                     ("the brute-force walk", P * P)], pair_flop,
+                    library_ms=lms,
+                    earlier="the brute-force kernel it replaces read")
+    print(f"kernel knn_brute P={P} k={k}: the kernel alone (brute_plan made "
+          f"beforehand) {alone_ms:.3f} ms, {alone_q:.3f} ms queued; the "
+          f"plan (build_point_tables, the frames' tables) the rest",
+          flush=True)
 
 
 def lattice_case(torch, step=2.0 ** -4, side=24, n_q=8000, seed=13):
@@ -474,36 +579,89 @@ def lattice_case(torch, step=2.0 ** -4, side=24, n_q=8000, seed=13):
 
 
 def phase_knn_shapes(torch, p, tabs, queries, g):
-    """K2 and K3 at the shapes a block-listed, split scan gets wrong first
-    (not timed into the table), every one bit-equal to the plain version:
-    a ragged M, a block of sentinel queries only, a cloud whose tiles
-    outnumber one round of tile tests and one of two tiles, tiles of 32 and
-    of 512 points, and points at exactly d2 == r2."""
-    from apnerf_torch.kernels import knn_cells as kc
+    """K1, K2 and K3 at the shapes a block-listed, split scan gets wrong
+    first (not timed into the table), every one bit-equal to the plain
+    version: a ragged M, a block of sentinel queries only, a cloud whose
+    tiles outnumber one round of tile tests and one of two tiles, tiles of
+    32 and of 512 points, points at exactly d2 == r2, duplicate points; K3
+    also at k = 12 everywhere; K1 as a lattice self-query (many equal
+    distances), on duplicate points, on P = 130 and on P = 10^5, at k = 1,
+    8 and 16. The kernels take fewer lanes a query from 32,768 queries on
+    (``kc.FEW_QUERIES``): K2 and K3 run each case also with sentinel
+    queries added up to 32,805, K1 on cases of 33,000 and 10^5 queries, so
+    that both instantiations of each meet every shape. On the smaller
+    clouds the tiles each warp scanned are held against
+    ``topk_scan_model`` (K3) and ``knn_brute_model`` (K1) on a CPU copy,
+    and so are the results."""
+    from apnerf_torch.kernels import knn_brute as kb, knn_cells as kc
     from apnerf_torch.ops.knn import morton_codes
     dev = p.device
+    many = kc.FEW_QUERIES + 37      # a ragged last block of the wide shape
+    MODEL_NOTE = ", the warps scanned the tiles of the model"
 
-    def both(name, q, tables, r2, k=8, want_count=None):
-        c = kc.knn_count(q, tables, r2)
-        d, i = kc.knn_radius(q, tables, k, r2)
-        pc = kc.knn_count_plain(q, tables["pts_sorted"], r2)
-        for lanes in (4, 16):       # both of K2's shapes, whatever M is
-            if not torch.equal(kc.knn_count_cuda(q, tables, r2, lanes), pc):
-                raise AssertionError(f"knn_count differs with {lanes} lanes "
-                                     f"a query: {name}")
-        pd, pi = kc.knn_radius_plain(q, tables["pts_sorted"], k, r2)
-        torch.cuda.synchronize()
-        if not torch.equal(c, pc):
-            raise AssertionError(f"knn_count differs: {name}")
-        if not (torch.equal(d, pd) and torch.equal(i, pi)):
-            raise AssertionError(f"knn_radius differs: {name}")
-        if want_count is not None and not torch.equal(c, want_count):
-            raise AssertionError(f"knn_count is not the integer count: "
-                                 f"{name}")
+    def both(name, q, tables, r2, k=8, want_count=None, model=False):
+        n = q.shape[0]
+        calls = [q]
+        if n < many:
+            calls.append(torch.cat([q, torch.full((many - n, 3), 1e9,
+                                                  device=dev)]))
+        for qq in calls:
+            M = qq.shape[0]
+            c = kc.knn_count(qq, tables, r2)
+            if not torch.equal(c, kc.knn_count_plain(qq, tables["pts_sorted"],
+                                                     r2)):
+                raise AssertionError(f"knn_count differs: {name}, M={M}")
+            if want_count is not None and not torch.equal(c[:n], want_count):
+                raise AssertionError(f"knn_count is not the integer count: "
+                                     f"{name}")
+            for kk in sorted({k, 12}):
+                pd, pi = kc.knn_radius_plain(qq, tables["pts_sorted"], kk, r2)
+                scan = {}
+                d, i = kc.knn_radius_cuda(qq, tables, kk, r2, scan)
+                if not (torch.equal(d, pd) and torch.equal(i, pi)):
+                    raise AssertionError(f"knn_radius differs: {name}, "
+                                         f"M={M}, k={kk}")
+                if model:
+                    md, mi, mt = kc.topk_scan_model(
+                        qq.cpu(), {key: v.cpu() for key, v in tables.items()},
+                        kk, r2)
+                    if not (torch.equal(md, pd.cpu())
+                            and torch.equal(mi, pi.cpu())
+                            and torch.equal(mt, scan["tiles"].cpu())):
+                        raise AssertionError(
+                            f"knn_radius: topk_scan_model's tiles "
+                            f"{int(mt.sum())}, the kernel's "
+                            f"{int(scan['tiles'].sum())}: {name}, M={M}, "
+                            f"k={kk}")
         T, _, pts = tables["pts_t"].shape
-        return (f"{name} (M={q.shape[0]}, T={T} x {pts}, count up to "
-                f"{int(c.max())}, {float((c >= k).float().mean()):.2f} of "
-                f"the queries with {k} in radius)")
+        return (f"{name} (M={n} and {many}, T={T} x {pts}, count up to "
+                f"{int(c[:n].max())}, {float((c[:n] >= k).float().mean()):.2f}"
+                f" of the queries with {k} in radius"
+                f"{MODEL_NOTE if model else ''})")
+
+    def brute(name, q, pts, ks, model=False):
+        # the plain version's first k of its stable sort, for every k
+        want_d, want_i = kb.knn_brute_plain(q, pts, max(ks))
+        for k in ks:
+            pd, pi = want_d[:, :k], want_i[:, :k]
+            scan = {}
+            d, i = kb.knn_brute_cuda(q, pts, k, scan)
+            if not (torch.equal(d, pd) and torch.equal(i, pi)):
+                raise AssertionError(f"knn_brute differs: {name}, k={k}")
+            if model:
+                pc = pts.cpu()
+                md, mi, mt = kb.knn_brute_model(pc if q is pts else q.cpu(),
+                                                pc, k)
+                if not (torch.equal(md, pd.cpu())
+                        and torch.equal(mi, pi.cpu())
+                        and torch.equal(mt, scan["tiles"].cpu())):
+                    raise AssertionError(
+                        f"knn_brute: knn_brute_model's tiles "
+                        f"{int(mt.sum())}, the kernel's "
+                        f"{int(scan['tiles'].sum())}: {name}, k={k}")
+        return (f"{name} (M={q.shape[0]}, P={pts.shape[0]}, k={list(ks)}, "
+                f"{kc.topk_lanes(q.shape[0])} lanes a query"
+                f"{MODEL_NOTE if model else ''})")
 
     def cloud(P, n_q, spread, pts_per_tile=kc.PTS):
         pc = (0.3 * torch.randn(P, 3, generator=g)).to(dev)
@@ -512,7 +670,7 @@ def phase_knn_shapes(torch, p, tabs, queries, g):
         q = pc[i] + spread * torch.randn(n_q, 3, generator=g).to(dev)
         order = torch.argsort(morton_codes(q, t["p_lo"], t["p_hi"]),
                               stable=True)
-        return q[order].contiguous(), t
+        return q[order].contiguous(), t, pc
 
     lines = []
     sentinel = torch.full((300, 3), 1e9, device=dev)
@@ -522,21 +680,45 @@ def phase_knn_shapes(torch, p, tabs, queries, g):
     if not bool((kc.knn_count(sentinel, tabs, RADIUS)
                  == (-p.shape[0]) % kc.PTS).all()):
         raise AssertionError("sentinel queries do not count the pad rows")
-    q, t = cloud(100000, 20011, 0.01)
+    q, t, big = cloud(100000, 20011, 0.01)
     lines.append(both("P=100000", q, t, 0.0004, k=12))
-    q, t = cloud(130, 999, 0.1)
-    lines.append(both("P=130", q, t, 0.02, k=3))
-    q, t = cloud(20000, 10007, 0.02, pts_per_tile=32)
+    lines.append(brute("K1, P=100000, other queries", q, big, (8,)))
+    lines.append(brute("K1, P=100000 self-query", big, big, (1, 16)))
+    q, t, small = cloud(130, 999, 0.1)
+    lines.append(both("P=130", q, t, 0.02, k=3, model=True))
+    lines.append(brute("K1, P=130 self-query", small, small, (1, 16),
+                       model=True))
+    q = small[torch.randint(0, 130, (33000,), generator=g).to(dev)] + \
+        0.1 * torch.randn(33000, 3, generator=g).to(dev)
+    lines.append(brute("K1, P=130, other queries", q.contiguous(), small,
+                       (1, 16), model=True))
+    q, t, _ = cloud(20000, 10007, 0.02, pts_per_tile=32)
     lines.append(both("tiles of 32", q, t, 0.002))
-    q, t = cloud(20000, 10007, 0.02, pts_per_tile=512)
+    q, t, _ = cloud(20000, 10007, 0.02, pts_per_tile=512)
     lines.append(both("tiles of 512", q, t, 0.002, k=16))
     q, t, r2, want, on_edge = lattice_case(torch)
     if on_edge < q.shape[0]:
         raise AssertionError("the lattice case has no points at d2 == r2")
     lines.append(both(f"lattice, {on_edge} pairs at exactly d2 == r2", q, t,
                       r2, want_count=want))
-    print("kernel knn_count / knn_radius, other shapes, bit-equal to the "
-          "plain versions: " + "; ".join(lines), flush=True)
+    real = t["pts_sorted"][:int((t["pts_sorted"][:, 0] < 1e8).sum())]
+    lines.append(brute("K1, lattice self-query", real, real, (1, 8, 16)))
+    q, _, _, _, _ = lattice_case(torch, n_q=40000)
+    lines.append(brute("K1, lattice points, lattice queries", q, real,
+                       (1, 8, 16)))
+    base = (0.3 * torch.randn(1000, 3, generator=g)).to(dev)
+    dup = torch.cat([base, base[::2], base[::3]])
+    dup = dup[torch.randperm(dup.shape[0], generator=g).to(dev)].contiguous()
+    t = kc.build_point_tables(dup)
+    i = torch.randint(0, dup.shape[0], (1500,), generator=g).to(dev)
+    q = dup[i] + 0.02 * torch.randn(1500, 3, generator=g).to(dev)
+    q = q[torch.argsort(morton_codes(q, t["p_lo"], t["p_hi"]),
+                        stable=True)].contiguous()
+    lines.append(both("duplicate points", q, t, 0.01, model=True))
+    lines.append(brute("K1, duplicate points self-query", dup, dup, (8,),
+                       model=True))
+    print("kernel knn_brute / knn_count / knn_radius, other shapes, "
+          "bit-equal to the plain versions: " + "; ".join(lines), flush=True)
 
 
 def random_layers(torch, g, F, n_pe, depth, pose_dim=0):
@@ -574,14 +756,15 @@ def phase_featmlp(torch, report, g, M=71680, K=8, F=128, n_pe=10):
     d, dc = (h - ph).abs(), (featmlp_fp32_layers(rel, feat, w, wts)
                               - ph).abs()
     err, mean = d.max().item(), d.mean().item()
-    print(f"kernel featmlp: max_abs_err {err:g} (gate {K4_MAX_ABS_ERR:g}), "
-          f"mean_abs_err {mean:g} (gate {K4_MEAN_ABS_ERR:g}); control "
-          f"without the per-layer bf16 round: max {dc.max().item():g}, "
-          f"mean {dc.mean().item():g}", flush=True)
-    if not (bool(torch.isfinite(h).all()) and err <= K4_MAX_ABS_ERR
-            and mean <= K4_MEAN_ABS_ERR):
+    top = ph.abs().max().item()
+    print(f"kernel featmlp: max_abs_err {err:g} ({err / top:.3g} of max |h| "
+          f"{top:.3g}, gate {K4_REL_MAX_ERR:.3g}), mean_abs_err {mean:g} "
+          f"(gates {K4_MEAN_ABS_ERR:g}, {mean / top:.3g} of max |h| against "
+          f"{K4_REL_MEAN_ERR:g}); control without the per-layer bf16 round: "
+          f"max {dc.max().item():g}, mean {dc.mean().item():g}", flush=True)
+    if not featmlp_within_gates(torch, h, err, mean, top):
         raise AssertionError(f"featmlp differs: max err {err:g}, mean "
-                             f"{mean:g}")
+                             f"{mean:g}, max |h| {top:g}")
     mlp_flop = 2 * ((3 * (1 + 2 * n_pe) + F) * F + 3 * F * F)  # per MLP row
     report.add("featmlp", f"M={M} K={K} F={F} depth 4", ms, pms, err,
                nbytes(rel, feat, w, wts.w1, wts.b1, wts.wl, wts.bl, h),
@@ -589,6 +772,11 @@ def phase_featmlp(torch, report, g, M=71680, K=8, F=128, n_pe=10):
     print_redesign(report, "featmlp", ms, K4_EARLIER_MS,
                    lambda: fm.featmlp_agg(rel, feat, w, wts))
     return layers
+
+
+def featmlp_within_gates(torch, h, err, mean, top) -> bool:
+    return (bool(torch.isfinite(h).all()) and err <= K4_REL_MAX_ERR * top
+            and mean <= K4_MEAN_ABS_ERR and mean <= K4_REL_MEAN_ERR * top)
 
 
 def queued_ms(fn, launches=20, rounds=5):
@@ -746,16 +934,19 @@ def phase_chain_shapes(torch, g):
             DEVICE)
         wts = fm.pack_weights(layers, F, n_pe, pose)
         h = fm.featmlp_agg(rel, feat, w, wts)
-        d = (h - fm.featmlp_plain(rel, feat, w, wts)).abs()
+        ph = fm.featmlp_plain(rel, feat, w, wts)
+        d = (h - ph).abs()
         err, mean = d.max().item(), d.mean().item()
+        top = ph.abs().max().item()
         lines.append(f"M={M} K={K} F={F} pe={n_pe} depth={depth} pose={pd} "
                      f"({fm.chain_plan(F, wts.P_pad, depth)['mode']}): max "
-                     f"{err:.3g}, mean {mean:.3g}")
-        if not (bool(torch.isfinite(h).all()) and err <= K4_MAX_ABS_ERR
-                and mean <= K4_MEAN_ABS_ERR):
+                     f"{err:.3g} ({err / top:.3g} of max |h|), mean "
+                     f"{mean:.3g} ({mean / top:.3g})")
+        if not featmlp_within_gates(torch, h, err, mean, top):
             raise AssertionError(f"featmlp differs: {lines[-1]}")
-    print("kernel featmlp, other shapes (gates "
-          f"{K4_MAX_ABS_ERR:g} / {K4_MEAN_ABS_ERR:g}): " + "; ".join(lines),
+    print("kernel featmlp, other shapes (gates: max "
+          f"{K4_REL_MAX_ERR:.3g} of max |h|, mean {K4_MEAN_ABS_ERR:g} and "
+          f"{K4_REL_MEAN_ERR:g} of max |h|): " + "; ".join(lines),
           flush=True)
     lines = []
     # S, share, kc, K, F, depth
@@ -1075,7 +1266,7 @@ def phase_train(torch, ckpt_dir):
 def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
     """Phase 4: save/load the bench model, render exact and shared."""
     from apnerf_torch import kernels
-    from apnerf_torch.data.bench_scene import bench_config
+    from apnerf_torch.data.bench_scene import bench_config, bench_heads
     from apnerf_torch.models import temporal_points as tp
     from apnerf_torch.render.renderers import render_view
     from apnerf_torch.utils.checkpoint import (load_temporalpoints,
@@ -1086,7 +1277,7 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
     model = tp.init_params(cfg0, pcd, joints, bones, feat,
                            np.full(P, 0.5, np.float32),
                            np.full((P, 3), 0.5, np.float32),
-                           timenet_dims=[cfg0.t_dim, 128, 60], generator=gen)
+                           bench_heads(cfg0, gen), generator=gen)
     # the bench's explicit pose (bench.py measure_mode)
     rng = np.random.default_rng(1)
     rot = torch.tensor(np.concatenate(
@@ -1144,6 +1335,13 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         dt = statistics.median(times)
+        loads = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            load_temporalpoints(path, device=DEVICE)
+            torch.cuda.synchronize()
+            loads.append(1e3 * (time.perf_counter() - t0))
         with plain_kernels():
             ref = frame()
         with plain_kernels(featmlp_fp32_layers):
@@ -1160,7 +1358,10 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
               f"{dt * 1e3:.1f} ms/frame (median of "
               f"{[round(t * 1e3, 1) for t in times]}), "
               f"{H * W / dt:.0f} rays/s, "
-              f"first load+frame {first_s:.1f} s, foreground {fg:.3f}, "
+              f"first load+frame {first_s:.1f} s, load_temporalpoints "
+              f"{statistics.median(loads):.1f} ms (median of "
+              f"{[round(t, 1) for t in loads]}; K1 runs once in it), "
+              f"foreground {fg:.3f}, "
               f"kernel vs plain {p_db:.2f} dB on the foreground (gate "
               f"{PSNR_MIN_DB:g}; control render {c_db:.2f} dB), "
               f"launches {launches[mode]}, "

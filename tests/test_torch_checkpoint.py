@@ -89,13 +89,16 @@ def test_port_imports_no_jax(tmp_path, scene):
         "'apnerf_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from apnerf_torch.models import temporal_points as tp\n"
-        "from apnerf_torch.utils.checkpoint import load_temporalpoints\n"
+        "from apnerf_torch.utils.checkpoint import load_temporalpoints, \\\n"
+        "    params_to_jax\n"
         f"model, state = load_temporalpoints({str(path)!r}, device='cpu')\n"
         "assert state['nn_i'].shape == (2000, 8)\n"
         "tp.init_params(model.cfg, state['canonical_pcd'].numpy(),\n"
         "               state['original_joints'].numpy(), state['bones'],\n"
         "               model.canonical_feat.detach().numpy(),\n"
-        "               np.zeros(2000), np.zeros((2000, 3)), [17, 32, 16],\n"
+        "               np.zeros(2000), np.zeros((2000, 3)),\n"
+        "               {k: v for k, v in params_to_jax(model.state_dict())\n"
+        "                .items() if k in tp.HEADS},\n"
         "               torch.Generator().manual_seed(0), device='cpu')\n"
         "from apnerf_torch import cli\n"
         "from apnerf_torch.render import lpips\n"

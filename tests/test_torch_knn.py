@@ -121,10 +121,11 @@ def test_knn_radius_plain_vs_pallas(k):
                                   np.sort(ji_np[clear], 1))
 
 
-@pytest.mark.parametrize("qb", [16, 64, 128, 256])
+@pytest.mark.parametrize("qb", [16, 32, 64, 128, 256])
 def test_candidate_tiles_prune_exactly(qb):
     """The tile lists the CUDA kernels walk (one block of qb queries each:
-    K2 takes 16 or 64, K3 256) hold every in-radius point: walking only the listed
+    K2 takes 16 or 64, K1 and K3 32 or 64) hold every in-radius point:
+    walking only the listed
     tiles in list order, as csrc/knn_cells.cu does, reproduces the plain
     count and top-k exactly, sentinel queries at 1e9 and a ragged last block
     included."""
@@ -140,8 +141,9 @@ def test_candidate_tiles_prune_exactly(qb):
     pts_t = tabs["pts_t"].numpy()
     T, _, pts = pts_t.shape
     assert lst.shape == (-(-600 // qb), T)
-    assert (tkc.QB, tkc.count_block(7392), tkc.count_block(131072)) == (
-        256, 16, 64)
+    assert (tkc.radius_block(8192), tkc.radius_block(71680),
+            tkc.count_block(7392), tkc.count_block(131072)) == (32, 64, 16, 64)
+    assert tkc.topk_lanes(8192) * tkc.QB_FEW == tkc.THREADS
     if qb == tkc.QB:                      # the default is K3's block
         dl, dc = tkc.candidate_tiles(qt, tabs, r2)
         assert torch.equal(dl, lst) and torch.equal(dc, cnt)
@@ -263,3 +265,104 @@ def test_wrappers_dispatch_by_device():
     with pytest.raises(ValueError):
         tkc.knn_count(tq.to("meta"), {k: v.to("meta")
                                       for k, v in tabs.items()}, 0.05)
+
+
+def _lattice(rng, side, n_p, n_q, step=2.0 ** -4):
+    """Points and queries on a lattice scaled by a power of two (every d2
+    exact in fp32, so equal distances tie exactly), chip_smoke.lattice_case's
+    construction at a smaller size."""
+    pi = np.unique(rng.integers(0, side, size=(n_p, 3)), axis=0)
+    qi = rng.integers(0, side, size=(n_q, 3))
+    return (qi * step).astype(np.float32), (pi * step).astype(np.float32)
+
+
+def _sorted_queries(q, tabs):
+    order = torch.argsort(_morton(q, tabs), stable=True)
+    return torch.tensor(q)[order].contiguous()
+
+
+@pytest.mark.parametrize("k", [1, 8, 12, 16])
+@pytest.mark.parametrize("case", ["lattice", "duplicates"])
+def test_knn_radius_work_split_model(case, k):
+    """K3's work split (topk_scan_model: per-lane top-k over strided
+    points, lanes merged by (d2, index), tiles beyond a warp's kth
+    distances skipped) equals knn_radius_plain bit for bit, with 8 and 4
+    lanes a query: on a lattice where many distances tie exactly (and sit
+    at exactly d2 == r2), and on a cloud whose points each appear two or
+    three times (ties at equal d2, other indices). Sentinel queries and a
+    ragged last block included. The prune skips tiles the listing keeps."""
+    rng = np.random.default_rng(20 + k)
+    if case == "lattice":
+        q, p = _lattice(rng, 12, 1200, 300)
+        r2 = 9 * 2.0 ** -8
+    else:
+        base = (rng.normal(size=(500, 3)) * 0.3).astype(np.float32)
+        p = np.concatenate([base, base[::2], base[::3]])
+        p = p[rng.permutation(len(p))]
+        q = (p[rng.integers(0, len(p), 300)]
+             + rng.normal(size=(300, 3)).astype(np.float32) * 0.02)
+        r2 = 0.01
+    q[::53] = 1e9
+    tabs = tkc.build_point_tables(torch.tensor(p))
+    qt = _sorted_queries(q, tabs)
+    want_d, want_i = tkc.knn_radius_plain(qt, tabs["pts_sorted"], k, r2)
+    assert (want_d[:, 0] == 0).any() or case == "duplicates"
+    for lanes in (8, 4):
+        d, i, tiles = tkc.topk_scan_model(qt, tabs, k, r2, lanes)
+        assert torch.equal(d, want_d) and torch.equal(i, want_i), lanes
+        _, cnt = tkc.candidate_tiles(qt, tabs, r2, qb=256 // lanes)
+        assert 0 < int(tiles.sum()) <= int(cnt.sum()) * 8
+    full = _d2_f32(qt.numpy(), tabs["pts_sorted"].numpy())
+    assert (full == r2).any() or case == "duplicates"
+    srt = np.sort(full, 1)
+    assert (srt[:, 1:k + 1] == srt[:, :k]).any()      # ties inside the top-k
+
+
+@pytest.mark.parametrize("k", [1, 8, 16])
+@pytest.mark.parametrize("case", ["lattice_self", "ragged_P", "queries"])
+def test_knn_brute_work_split_model(case, k):
+    """K1's pruned search (knn_brute_model: Morton-sorted queries seeded
+    with the largest d2 over k sorted points near them, the tiles walked
+    from the block's own on and pruned by the warps' kth distances, every
+    insert by (d2, original index)) equals knn_brute_plain bit for bit: a
+    lattice self-query, where many distances tie; a cloud of P = 1,337 (not
+    a multiple of the 128-point tile; its pad rows never enter); other
+    queries than the points. The seeds bound the true kth distance, and the
+    warps scan fewer tiles than a walk of every tile."""
+    rng = np.random.default_rng(40 + k)
+    if case == "lattice_self":
+        _, p = _lattice(rng, 12, 1500, 1)
+        q = p
+    else:
+        q, p = _cloud(rng, 400, 1337, spread=0.05, scale=0.3)
+        if case == "ragged_P":
+            q = p
+    tp = torch.tensor(p)
+    tq = tp if q is p else torch.tensor(q)
+    want_d, want_i = tkb.knn_brute_plain(tq, tp, k)
+    d, i, tiles = tkb.knn_brute_model(tq, tp, k)
+    assert torch.equal(d, want_d) and torch.equal(i, want_i)
+    tables, order, pos = tkb.brute_plan(tq, tp)
+    assert (pos is None) == (q is p)
+    seed = tkb.brute_seeds(tq[order], tables["pts_sorted"], pos, k, len(p))
+    assert (seed >= want_d[order, k - 1]).all()
+    T = tables["pts_t"].shape[0]
+    assert 0 < int(tiles.sum()) < tiles.numel() * T
+    if case == "lattice_self":
+        srt = np.sort(_d2_f32(p, p), 1)
+        assert (srt[:, 2:k + 2] == srt[:, 1:k + 1]).any()   # ties at the kth
+
+
+def test_c_entry_points_match_signatures():
+    """Every extern "C" entry point of csrc/*.cu is declared in
+    kernels/build.SIGNATURES with as many arguments as it takes, and every
+    declared one exists (ctypes would otherwise fail only on the card, at
+    load, or pass arguments in the wrong slots)."""
+    import re
+    from apnerf_torch.kernels import build
+    found = {}
+    for src in build.CSRC.glob("*.cu"):
+        for name, args in re.findall(r'extern "C" \w+ (\w+)\(([^)]*)\)',
+                                     src.read_text()):
+            found[name] = len([a for a in args.split(",") if a.strip()])
+    assert found == {k: len(v) for k, v in build.SIGNATURES.items()}

@@ -390,8 +390,9 @@ NEEDS_CUDA = {
     "init_params": lambda s: ttp.init_params(
         s["cfg"], s["pcd"], s["joints"], s["bones"],
         np.zeros((len(s["pcd"]), 32), np.float32), np.zeros(len(s["pcd"])),
-        np.zeros((len(s["pcd"]), 3)), [17, 8, 4],
-        torch.Generator().manual_seed(0)),
+        np.zeros((len(s["pcd"]), 3)),
+        {k: v for k, v in tck.params_to_jax(s["model"].state_dict()).items()
+         if k in ttp.HEADS}, torch.Generator().manual_seed(0)),
     "scene_rep_reconstruction": lambda s: s["stage1"](),
     "render_image": lambda s: trender.render_image(
         lambda *a: {}, np.eye(3), np.eye(4), 2, 2),
@@ -440,3 +441,38 @@ def test_entry_points_need_cuda_unless_asked(name, entry_args):
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA device"):
         NEEDS_CUDA[name](entry_args)
+
+
+def test_profile_render_reads_launches_from_the_trace(tmp_path):
+    """profile_render counts a wrapper range's launches by the CUPTI
+    correlation ids of the runtime calls made inside it: the wrapper's own
+    launch counts as its kernel, a call outside the range counts nowhere,
+    and a launch whose correlation id is also an operation's External id
+    is reported as such, with that operation's kernels not counted."""
+    import json
+    from apnerf_torch.render import profile_render as pr
+    x = dict(ph="X", dur=1)
+    events = [
+        dict(x, cat="user_annotation", name="wrapper of K3", ts=100, dur=50,
+             tid=1, args={"External id": 40}),
+        dict(x, cat="cpu_op", name="aten::mul", ts=10, tid=1,
+             args={"External id": 7}),
+        dict(x, cat="cuda_runtime", name="cudaLaunchKernel", ts=11, tid=1,
+             args={"correlation": 3, "External id": 7}),
+        dict(x, cat="kernel", name="vectorized_elementwise_kernel", ts=20,
+             tid=9, args={"correlation": 3, "External id": 7}),
+        dict(x, cat="cuda_runtime", name="cudaLaunchKernel", ts=120, tid=1,
+             args={"correlation": 7}),
+        dict(x, cat="kernel", name="void knn_topk_kernel<8, 8, false>",
+             ts=130, tid=9, args={"correlation": 7}),
+        dict(x, cat="cuda_runtime", name="cudaLaunchKernel", ts=120, tid=2,
+             args={"correlation": 8}),
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    rows = pr.range_launches(str(path))
+    k3 = rows["wrapper of K3"]
+    assert (k3["ranges"], k3["calls"]) == (1, 1)
+    assert dict(k3["kernels"]) == {"K3 knn_radius": 1}
+    assert dict(k3["clashes"]) == {"aten::mul": 1}
+    assert rows["wrapper of K2"]["calls"] == 0

@@ -363,37 +363,71 @@ def test_init_state_neighbours(scene):
                                    1)[clear], rtol=1e-5, atol=1e-6)
 
 
-def test_init_params_vs_jax(scene):
-    """The port's init_params: skinning weights, joints and per-point
-    arrays equal the JAX init_params' (fp32, rtol 1e-6); the parameter
-    tree has the JAX pytree's structure and shapes; the networks are drawn
-    from the torch.Generator alone."""
+def _port_init(cfg_kw, scene, seed):
     pcd, joints, bones, feat = scene_arrays()
-    cfg = ttp.TemporalPointsConfig(**BASE)
+    cfg = ttp.TemporalPointsConfig(**{**BASE, **cfg_kw})
+    heads = {k: scene["tree"][k] for k in ttp.HEADS}
+    return ttp.init_params(cfg, pcd, joints, bones, feat,
+                           np.full(P, 0.5, np.float32),
+                           np.full((P, 3), 0.5, np.float32), heads,
+                           generator=torch.Generator().manual_seed(seed),
+                           device="cpu")
 
-    def make(seed):
-        return ttp.init_params(cfg, pcd, joints, bones, feat,
-                               np.full(P, 0.5, np.float32),
-                               np.full((P, 3), 0.5, np.float32),
-                               timenet_dims=[cfg.t_dim, 32, 16],
-                               generator=torch.Generator().manual_seed(seed),
-                               device="cpu")
-    model = make(0)
+
+def test_init_params_vs_jax(scene):
+    """The port's init_params: given the JAX init_params' tineuvox_params,
+    rgbnet / densitynet / timenet are the JAX init_params' bit for bit
+    (copied from the backbone); skinning weights, joints and per-point
+    arrays equal the JAX ones (fp32, rtol 1e-6); the parameter tree has the
+    JAX pytree's structure and shapes; the other networks are drawn from
+    the torch.Generator alone."""
+    model = _port_init({}, scene, 0)
     tree = scene["tree"]
+    got = params_to_jax(model.state_dict())
+    for name in ttp.HEADS:
+        jax.tree_util.tree_map(np.testing.assert_array_equal, got[name],
+                               tree[name])
     for key in ("weights", "joints", "theta_weight", "canonical_feat",
                 "canonical_rgbs", "canonical_alpha", "direct_eps"):
         np.testing.assert_allclose(getattr(model, key).detach().numpy(),
                                    tree[key], rtol=1e-6, atol=0, err_msg=key)
     gam = model.gammas.detach().numpy()
     assert abs(gam.mean() - 1.0) < 2e-3 and 5e-3 < gam.std() < 2e-2
-    got = params_to_jax(model.state_dict())
     assert (jax.tree_util.tree_map(np.shape, got)
             == jax.tree_util.tree_map(np.shape, tree))
-    again, other = make(0).state_dict(), make(1).state_dict()
+    again, other = (_port_init({}, scene, 0).state_dict(),
+                    _port_init({}, scene, 1).state_dict())
     for k, v in model.state_dict().items():
         assert torch.equal(again[k], v), k
+        if k.split(".")[0] in ttp.HEADS:
+            assert torch.equal(other[k], v), k
     assert not torch.equal(other["feat_net.layers.0.weight"],
                            model.feat_net.layers[0].weight)
+
+
+def test_init_params_re_init_mlps(scene):
+    """Under re_init_mlps the three heads are drawn again, as the JAX
+    init_params draws them: they differ from the backbone's, keep the JAX
+    shapes (those of the JAX init_params with the flag), and repeat for
+    one generator seed."""
+    pcd, joints, bones, feat = scene_arrays()
+    jcfg = jtp.TemporalPointsConfig(**{**BASE, "re_init_mlps": True})
+    jre = jax.tree_util.tree_map(np.asarray, jtp.init_params(
+        jax.random.PRNGKey(1), jcfg, pcd, joints, bones, feat,
+        np.full(P, 0.5, np.float32), np.full((P, 3), 0.5, np.float32),
+        {k: scene["tree"][k] for k in ttp.HEADS}))
+    a = params_to_jax(_port_init({"re_init_mlps": True}, scene, 0)
+                      .state_dict())
+    b = params_to_jax(_port_init({"re_init_mlps": True}, scene, 0)
+                      .state_dict())
+    for name in ttp.HEADS:
+        assert (jax.tree_util.tree_map(np.shape, a[name])
+                == jax.tree_util.tree_map(np.shape, jre[name]))
+        jax.tree_util.tree_map(np.testing.assert_array_equal, a[name],
+                               b[name])
+        for x, y in zip(jax.tree_util.tree_leaves(a[name]),
+                        jax.tree_util.tree_leaves(scene["tree"][name])):
+            assert not np.array_equal(x, y), name
 
 
 def test_unported_options_raise(scene):
