@@ -1,5 +1,6 @@
-"""TemporalPoints stage-2 point-model render and skeleton simplification
-(port of ``apnerf/models/temporal_points.py``, forward only).
+"""TemporalPoints stage-2 point model: the render and training forward,
+the six training losses and skeleton simplification (port of
+``apnerf/models/temporal_points.py``).
 
 One code path and one index space: the warped cloud is always Morton-sorted
 into the k-NN tables of ``kernels.knn_cells`` (pad rows included), and the
@@ -9,23 +10,31 @@ static budgets (``M_act``, ``G2``, ``M_pass``, ``S_pass``), their 1024- and
 package's: they decide which samples survive. Every JAX ``argsort`` is a
 stable sort here too.
 
-``fused_agg`` takes kernel K6 (``kernels.agg``) under the JAX package's
-own conditions (shared mode, bf16 aggregation, no pose embedding, not
-``render_pcd_direct``, not ``render_weights``, ``feat_depth == 4``);
-otherwise kernel K4 runs. ``aggregate_pts`` reports which ran
-(``knn_path``).
+Sampling: the fused group sampler when ``coarse_stride`` divides the
+budgets, else (or under ``APNERF_FUSED_SAMPLER=0``) the
+``sample_rays_compact`` / ``compact_active`` pair, as the JAX package
+chooses. ``feat_net`` runs in kernel K4 (``kernels.featmlp``) under
+``featmlp_kernel`` with bf16 aggregation, and otherwise in the XLA
+formulation (``featnet_plain``); ``fused_agg`` takes kernel K6
+(``kernels.agg``) under the JAX package's own conditions (shared mode, bf16
+aggregation, no pose embedding, not ``render_pcd_direct``, not
+``render_weights``, ``feat_depth == 4``). ``aggregate_pts`` reports which
+ran (``knn_path``).
 
-Not ported yet (raise ``NotImplementedError``): the non-fused
-``sample_rays_compact`` / ``compact_active`` pair (``APNERF_FUSED_SAMPLER=0``
-or budgets that the coarse stride does not divide), the XLA ``feat_net``
-formulation (``agg_bf16=False`` or ``featmlp_kernel=False``), and the
-stage-2 losses and training.
+``prepare_frame`` and ``forward`` are differentiable: the training step
+takes gradients through them. The k-NN and everything built for it (the
+tables, the occupancy grid, the frame's bbox) take detached positions, as
+the JAX package's ``stop_gradient`` does; so does the pose embedding's
+input. K4 under training is ``FeatMLPTrain``: the kernel forward and a
+backward that recomputes through ``featnet_plain`` (the JAX custom VJP).
+K6 is forward-only and refuses to run with gradients enabled. The render
+callers hold ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,14 +43,15 @@ from torch import nn
 
 from .. import resolve_device
 from ..kernels.agg import fused_subgroup_agg
-from ..kernels.featmlp import featmlp_agg, pack_weights
+from ..kernels.featmlp import FeatMLPWeights, featmlp_agg, pack_weights
 from ..kernels.knn_cells import build_point_tables
+from ..kinematics.skeletonizer import point_segment_distance
 from ..kinematics.treeprune import flatten_merging_rules, merge_joints
 from ..ops import encoding
 from ..ops.activation import raw2alpha
 from ..ops.knn import knn, knn_count, morton_codes
 from ..ops.marching import alpha2weights, composite
-from ..ops.nn import MLP
+from ..ops.nn import MLP, leaky_relu
 from ..ops.rays import ray_aabb, vector_norm
 from ..ops.rotations import rodrigues, rotmat_to_rotvec
 from . import point_warper
@@ -152,17 +162,6 @@ class TemporalPoints(nn.Module):
         return forward(self, state, rays_o, rays_d, viewdirs, **kwargs)
 
 
-def _point_segment_distance(p, a, b, eps=1e-12) -> np.ndarray:
-    """Distance (float64) from points p [N, 3] to each segment
-    (a[m], b[m]) -> [M, N] (``apnerf.kinematics.skeletonizer``)."""
-    p, a, b = (np.asarray(x, np.float64) for x in (p, a, b))
-    s = b - a
-    t = np.clip(((p[None] - a[:, None]) * s[:, None]).sum(-1)
-                / np.maximum((s * s).sum(-1)[:, None], eps), 0.0, 1.0)
-    closest = a[:, None, :] + t[..., None] * s[:, None, :]
-    return np.linalg.norm(p[None] - closest, axis=-1)
-
-
 HEADS = ("rgbnet", "densitynet", "timenet")
 
 
@@ -184,7 +183,7 @@ def init_params(cfg: TemporalPointsConfig, canonical_pcd, joints, bones,
     P = cfg.n_points
     a = np.array([joints[b[0]] for b in bones], np.float64)
     b = np.array([joints[b[1]] for b in bones], np.float64)
-    d = _point_segment_distance(canonical_pcd, a, b)              # [J-1, P]
+    d = point_segment_distance(canonical_pcd, a, b)              # [J-1, P]
     w = (1.0 / (0.5 * np.e ** d + cfg.eps)).T
     w = np.concatenate([np.zeros((P, 1)), w], axis=-1)
     heads = params_from_jax({name: tineuvox_params[name] for name in HEADS})
@@ -332,7 +331,9 @@ def occupancy_lookup(occ, cell, bbox_min, pts):
 def prepare_occupancy(cfg: TemporalPointsConfig, state, t_hat_pcd,
                       query_radius: float, calc_min_max: bool = True):
     """Per-frame bbox, occupancy grid and Morton k-NN tables of the warped
-    cloud, shared by every ray chunk of the frame."""
+    cloud, shared by every ray chunk of the frame. All three are built from
+    the detached cloud: sample positions and the k-NN carry no gradient."""
+    t_hat_pcd = t_hat_pcd.detach()
     if calc_min_max:
         bb_min = t_hat_pcd.amin(0) - query_radius
         bb_max = t_hat_pcd.amax(0) + query_radius
@@ -362,6 +363,25 @@ def _budget_compact(keep_mask: torch.Tensor, values: torch.Tensor,
     return out[:budget]
 
 
+def _coarse_hits(occ, occ_cell, occ_margin, bb_min, start, unit_d, jc, c,
+                 stepdist):
+    """Occupancy hit of each coarse group of ``c`` steps [R, Sc]: at the
+    group centre (clamped into the grid) when the grid's dilation margin
+    covers the group half-width, else over every member."""
+    half = (c - 1) / 2.0 * stepdist
+    if half <= occ_margin * (1 + 1e-6) + 1e-12:
+        tc = (jc * c + (c - 1) / 2.0) * stepdist
+        pc = start[:, None, :] + unit_d[:, None, :] * tc[None, :, None]
+        idx = torch.floor((pc - bb_min) / occ_cell).to(torch.int64).clamp(
+            0, occ.shape[0] - 1)
+        return occ[idx[..., 0], idx[..., 1], idx[..., 2]]
+    ar = torch.arange(c, dtype=F32, device=jc.device)
+    tm = (jc[:, None] * c + ar[None, :]) * stepdist
+    pm = (start[:, None, None, :]
+          + unit_d[:, None, None, :] * tm[None, :, :, None])
+    return occupancy_lookup(occ, occ_cell, bb_min, pm).any(-1)
+
+
 def _sample_groups_fused(cfg: TemporalPointsConfig, rays_o, rays_d, near,
                          far, bb_min, bb_max, occ, occ_cell, occ_margin,
                          tables, query_radius, M_act):
@@ -380,21 +400,11 @@ def _sample_groups_fused(cfg: TemporalPointsConfig, rays_o, rays_d, near,
     Bc = B // c
     ar_c = torch.arange(c, device=dev)
 
-    # ---- per-ray group budgeting: occupancy test at the group centre, or
-    # over every member when the grid's margin does not cover the group
+    # ---- per-ray group budgeting on the groups' occupancy hits
     jc = torch.arange(Sc, dtype=F32, device=dev)
     half = (c - 1) / 2.0 * stepdist
-    if half <= occ_margin * (1 + 1e-6) + 1e-12:
-        tc = (jc * c + (c - 1) / 2.0) * stepdist
-        pc = start[:, None, :] + unit_d[:, None, :] * tc[None, :, None]
-        idx = torch.floor((pc - bb_min) / occ_cell).to(torch.int64).clamp(
-            0, occ.shape[0] - 1)
-        hit = occ[idx[..., 0], idx[..., 1], idx[..., 2]]
-    else:
-        tm = (jc[:, None] * c + ar_c.to(F32)[None, :]) * stepdist
-        pm = (start[:, None, None, :]
-              + unit_d[:, None, None, :] * tm[None, :, :, None])
-        hit = occupancy_lookup(occ, occ_cell, bb_min, pm).any(-1)
+    hit = _coarse_hits(occ, occ_cell, occ_margin, bb_min, start, unit_d, jc,
+                       c, stepdist)
     hit = hit & (jc[None, :] * c < n_steps[:, None])
     src_c = _compact_per_ray(hit, Bc)                     # [R, Bc], Sc empty
     src_steps = (src_c[:, :, None] * c + ar_c).reshape(R, B)
@@ -452,39 +462,252 @@ def _sample_groups_fused(cfg: TemporalPointsConfig, rays_o, rays_d, near,
     return q, src, act_ok, step_id, act_demand
 
 
-def _featnet_h(featnet, rel_canon, feat_k, w):
-    """h = sum_k w[..., k] * feat_net(PE(rel_canon), feat_k, pose)
-    through kernel K4; ``featnet`` is the frame's packed bf16 feat_net."""
+def sample_rays_compact(cfg: TemporalPointsConfig, rays_o, rays_d, near, far,
+                        bbox_min, bbox_max, occ=None, occ_cell=None,
+                        occ_margin=0.0):
+    """Dense slab sampling against the frame's bbox plus per-ray
+    compaction to ``sample_budget`` slots (JAX ``sample_rays_compact``) ->
+    (pts [R, B, 3] with 1e9 in empty slots, valid [R, B], step [R, B]).
+
+    With an occupancy grid and ``coarse_stride`` dividing the budget, whole
+    groups of ``coarse_stride`` steps are budgeted on their occupancy hit;
+    otherwise each step is tested."""
+    dev = rays_o.device
+    stepdist = cfg.stepsize * cfg.voxel_size
+    t_min, t_max = ray_aabb(rays_o, rays_d, bbox_min, bbox_max, near, far)
+    n_steps = torch.clamp(torch.ceil((t_max - t_min) / stepdist), min=1.0)
+    start = rays_o + rays_d * t_min[:, None]
+    unit_d = rays_d / vector_norm(rays_d)
+    S, R, B, c = cfg.max_steps, rays_o.shape[0], cfg.sample_budget, \
+        cfg.coarse_stride
+    if occ is not None and B % c == 0:
+        Sc = (S + c - 1) // c
+        jc = torch.arange(Sc, dtype=F32, device=dev)
+        hit = _coarse_hits(occ, occ_cell, occ_margin, bbox_min, start,
+                           unit_d, jc, c, stepdist)
+        hit = hit & (jc[None, :] * c < n_steps[:, None])
+        src_c = _compact_per_ray(hit, B // c)                 # [R, B/c]
+        src = (src_c[:, :, None] * c
+               + torch.arange(c, device=dev)).reshape(R, B)
+        step_f = src.to(F32)
+        pts = start[:, None, :] + unit_d[:, None, :] * (
+            step_f[..., None] * stepdist)
+        in_bbox = ((pts >= bbox_min) & (pts <= bbox_max)).all(-1)
+        valid = (step_f < n_steps[:, None]) & (src < S) & in_bbox
+        pts = torch.where(valid[..., None], pts, torch.full_like(pts, 1e9))
+        return pts, valid, torch.clamp(step_f, max=S - 1)
+
+    step = torch.arange(S, dtype=F32, device=dev)
+    pts = start[:, None, :] + unit_d[:, None, :] * (step[None, :, None]
+                                                    * stepdist)
+    in_bbox = ((pts >= bbox_min) & (pts <= bbox_max)).all(-1)
+    valid = (step[None, :] < n_steps[:, None]) & in_bbox
+    if occ is not None:
+        valid = valid & occupancy_lookup(occ, occ_cell, bbox_min, pts)
+    src = _compact_per_ray(valid, B)                          # [R, B]
+    pts_pad = torch.cat([pts, torch.full((R, 1, 3), 1e9, device=dev)], 1)
+    pts_c = torch.gather(pts_pad, 1, src[..., None].expand(R, B, 3))
+    return pts_c, src < S, torch.clamp(src, max=S - 1).to(F32)
+
+
+def active_budget(cfg: TemporalPointsConfig, M_full: int) -> int:
+    """The static active-sample budget of ``M_full`` slots: the
+    ``active_fraction`` share rounded up to a multiple of 1024, at least
+    1024 and at most ``M_full``."""
+    M_act = int(M_full * cfg.active_fraction)
+    return min(max(1024, ((M_act + 1023) // 1024) * 1024), M_full)
+
+
+def compact_active(cfg: TemporalPointsConfig, pts, valid, bb_min, bb_max,
+                   tables=None, query_radius=None):
+    """Global compaction of the valid samples to the active budget, Morton
+    ordered (JAX ``compact_active``) -> (q [M_slots, 3], src [M_slots] flat
+    index into R * B (M_full when empty), act_ok [M_slots], grouped).
+
+    When ``coarse_stride`` divides the budgets the compaction runs over
+    whole groups (``grouped`` True), in depth-major drop order; with
+    ``tables`` and ``query_radius`` the groups first pass the hierarchical
+    prefilter (kernel K2 on the group representatives, the min corner of
+    their members, at the radius enlarged by the group length), budgeted
+    by ``group_pass_fraction``. Otherwise single samples are compacted in
+    depth-major order."""
+    R, B = valid.shape
+    dev = valid.device
+    M_full = R * B
+    q_full = pts.reshape(M_full, 3)
+    M_act = active_budget(cfg, M_full)
+    c = cfg.coarse_stride
+    if B % c == 0 and M_act % c == 0:
+        Bc = B // c
+        M_grp = R * Bc
+        G_act = M_act // c
+        gv = valid.reshape(R, Bc, c).any(-1).t().reshape(M_grp)
+        gid = torch.arange(M_grp, device=dev)
+        gsrc = _budget_compact(gv, (gid % R) * Bc + gid // R, G_act, M_grp)
+        grep = torch.cat([pts.reshape(M_grp, c, 3).amin(1),
+                          torch.full((1, 3), 1e9, device=dev)], 0)[gsrc]
+        gperm = torch.argsort(morton_codes(grep, bb_min, bb_max),
+                              stable=True)
+        gsrc = gsrc[gperm]
+        if (query_radius is not None and tables is not None
+                and cfg.group_pass_fraction > 0):
+            stepdist = cfg.stepsize * cfg.voxel_size
+            thr = float((np.sqrt(query_radius) + (c - 1) * stepdist) ** 2)
+            gkeep = knn_count(grep[gperm], tables, thr) >= cfg.neighbours
+            G2 = int(G_act * cfg.group_pass_fraction)
+            G2 = min(max(128, (G2 + 127) // 128 * 128), G_act)
+            if G2 < G_act:
+                gsrc = _budget_compact(gkeep, gsrc, G2, M_grp)
+            else:
+                gsrc = torch.where(gkeep, gsrc, torch.full_like(gsrc, M_grp))
+        M_slots = gsrc.shape[0] * c
+        ray_of_g = torch.clamp(gsrc // Bc, max=R - 1)
+        base = torch.where(gsrc < M_grp, ray_of_g * B + (gsrc % Bc) * c,
+                           torch.full_like(gsrc, M_full))
+        src = torch.clamp((base[:, None] + torch.arange(c, device=dev)
+                           ).reshape(M_slots), max=M_full)
+        q_groups = torch.cat([q_full.reshape(M_grp, 3 * c),
+                              torch.full((1, 3 * c), 1e9, device=dev)], 0)
+        q = q_groups[torch.clamp(gsrc, max=M_grp)].reshape(M_slots, 3)
+        return q, src, q[:, 0] < 1e8, True
+    flat_id = torch.arange(M_full, device=dev)
+    src = _budget_compact(valid.t().reshape(M_full),
+                          (flat_id % R) * B + flat_id // R, M_act, M_full)
+    q_pad = torch.cat([q_full, torch.full((1, 3), 1e9, device=dev)], 0)
+    q = q_pad[src]
+    mperm = torch.argsort(morton_codes(q, bb_min, bb_max), stable=True)
+    src = src[mperm]
+    return q[mperm], src, src < M_full, False
+
+
+def featnet_plain(layers: List[Tuple[torch.Tensor, torch.Tensor]],
+                  rel_canon, feat_k, w, pose_embedding, n_pe: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The XLA formulation of the aggregation (the JAX ``_featnet_h``
+    without the kernel): h = sum_k w[..., k] * feat_net(PE(rel_canon) ++
+    feat_k (++ pose embedding)), the inputs and ``layers`` (``(weight
+    [dout, din], bias)`` pairs) in ``dtype``, each layer's product and
+    bias add rounded to it as the JAX package rounds them, leaky-ReLU
+    after every layer, the weighted K-sum in fp32. Differentiable."""
+    rel_emb = encoding.poc_fre(rel_canon, encoding.poc_freqs(
+        n_pe, rel_canon.device))
+    x = [rel_emb.to(dtype), feat_k.to(dtype)]
+    if pose_embedding is not None:
+        x.append(pose_embedding.reshape(-1).to(dtype).expand(
+            *rel_emb.shape[:-1], pose_embedding.numel()))
+    x = torch.cat(x, -1)
+    for wt, b in layers:
+        x = leaky_relu(x @ wt.t() + b)
+    return (x.float() * w[..., None]).sum(-2)
+
+
+class FeatMLPTrain(torch.autograd.Function):
+    """Kernel K4 with a gradient: the forward is ``featmlp_agg`` on the
+    packed weights (the kernel on CUDA tensors), the backward recomputes
+    through ``featnet_plain`` in bf16 and differentiates that, as the JAX
+    package's custom VJP (``apnerf/kernels/featmlp_pallas.py``) does; no
+    layer activation is kept from the forward. Gradients reach
+    ``rel``, ``feat``, ``w``, the pose embedding and the bf16 layers."""
+
+    @staticmethod
+    def forward(ctx, wts: FeatMLPWeights, n_pe: int, rel, feat, w,
+                pose_embedding, *layers):
+        ctx.n_pe = n_pe
+        ctx.save_for_backward(rel, feat, w, pose_embedding, *layers)
+        return featmlp_agg(rel, feat, w, wts)
+
+    @staticmethod
+    def backward(ctx, g):
+        rel, feat, w, pose, *layers = ctx.saved_tensors
+        ins = [t if t is None else t.detach().requires_grad_(
+            ctx.needs_input_grad[i + 2])
+            for i, t in enumerate([rel, feat, w, pose, *layers])]
+        wanted = [t for t in ins if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            h = featnet_plain(list(zip(ins[4::2], ins[5::2])), ins[0],
+                              ins[1], ins[2], ins[3], ctx.n_pe,
+                              torch.bfloat16)
+            grads = iter(torch.autograd.grad(h, wanted, g.float(),
+                                             allow_unused=True))
+        return (None, None, *(next(grads) if t is not None and t.requires_grad
+                              else None for t in ins))
+
+
+def _featnet_h(srcs: "PointSources", rel_canon, feat_k, w):
+    """h = sum_k w[..., k] * feat_net(PE(rel_canon), feat_k, pose): kernel
+    K4 (with its recompute backward) when the frame packed its weights,
+    else the XLA formulation."""
+    if not srcs.k4:
+        return featnet_plain(srcs.layers, rel_canon, feat_k, w,
+                             srcs.pose_embedding, srcs.n_pe, srcs.dtype)
     K = rel_canon.shape[-2]
     F = feat_k.shape[-1]
     lead = rel_canon.shape[:-2]
-    h = featmlp_agg(rel_canon.reshape(-1, K, 3), feat_k.reshape(-1, K, F),
-                    w.reshape(-1, K), featnet)
+    h = FeatMLPTrain.apply(
+        srcs.featnet, srcs.n_pe, rel_canon.reshape(-1, K, 3).float(),
+        feat_k.reshape(-1, K, F).to(torch.bfloat16), w.reshape(-1, K).float(),
+        srcs.pose_embedding, *(t for layer in srcs.layers for t in layer))
     return h.reshape(*lead, F)
 
 
 class PointSources:
     """What every ray chunk of a frame gathers from, built once per frame
     by ``prepare_frame``: the per-point arrays permuted into the
-    Morton-sorted k-NN space (pad rows are zeros) and feat_net packed for
-    kernel K4 (bf16, biases included, as the model runs it; the frame's
-    pose embedding folded into the layer-1 bias)."""
+    Morton-sorted k-NN space (pad rows are zeros; ``gather`` reads them),
+    ``feat_net``'s layers in the aggregation type (bf16 under ``agg_bf16``,
+    else fp32), and, when kernel K4 or K6 may run, those layers packed for
+    the kernels (biases included, the frame's pose embedding folded into
+    the layer-1 bias)."""
 
     def __init__(self, model: TemporalPoints, state, tables, t_hat_pcd,
                  inv_rot, lbs_weights, pose_embedding):
+        cfg = model.cfg
         self.model = model
         self.perm = tables["perm"]
         self.Pp = tables["pts_sorted"].shape[0]
+        self.dtype = torch.bfloat16 if cfg.agg_bf16 else F32
+        self.n_pe = cfg.posbase_pe
         self.geo = torch.cat([self.permute(t_hat_pcd),
                               self.permute(inv_rot.reshape(-1, 9))], -1)
-        self.feat = self.permute(model.canonical_feat.to(torch.bfloat16))
+        self.feat = self.permute(model.canonical_feat)
         self.lbs = None if lbs_weights is None else self.permute(lbs_weights)
         self.mean_min_distance = state["mean_min_distance"]
-        self.has_pose_embedding = pose_embedding is not None
-        self.featnet = pack_weights(
-            [(l.weight.to(torch.bfloat16), l.bias.to(torch.bfloat16))
-             for l in model.feat_net.layers], model.cfg.feat_dim,
-            model.cfg.posbase_pe, pose_embedding)
+        self.pose_embedding = pose_embedding
+        self.layers = [(l.weight.to(self.dtype), l.bias.to(self.dtype))
+                       for l in model.feat_net.layers]
+        self.featnet = None
+        if cfg.agg_bf16 and (cfg.fused_agg or (cfg.featmlp_kernel
+                                               and cfg.feat_depth >= 2)):
+            with torch.no_grad():
+                self.featnet = pack_weights(
+                    [(wt.detach(), b.detach()) for wt, b in self.layers],
+                    cfg.feat_dim, cfg.posbase_pe,
+                    None if pose_embedding is None
+                    else pose_embedding.detach())
+
+    @property
+    def has_pose_embedding(self) -> bool:
+        return self.pose_embedding is not None
+
+    @property
+    def k4(self) -> bool:
+        """Does the exact and the non-fused shared aggregation run K4?"""
+        cfg = self.model.cfg
+        return (self.featnet is not None and cfg.featmlp_kernel
+                and cfg.feat_depth >= 2)
+
+    def gather(self, idx):
+        """Position + inverse rotation [..., 12] (fp32) and features
+        [..., F] (in the aggregation type) of the sorted rows ``idx``.
+        ``index_select``, whose backward sums into the tables with
+        ``index_add_`` (fp32: the features are cast after the gather);
+        indexing's sort-based backward took ~80 ms of a training step for
+        the ~0.6 M rows the exact step gathers at the nerf family's width
+        (NVIDIA H100 80GB HBM3, 700 W)."""
+        flat = idx.reshape(-1)
+        geo = self.geo.index_select(0, flat).reshape(*idx.shape, -1)
+        feat = self.feat.index_select(0, flat).to(self.dtype)
+        return geo, feat.reshape(*idx.shape, -1)
 
     def permute(self, arr):
         out = arr[self.perm]
@@ -536,7 +759,8 @@ def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
     With ``cfg.fused_agg`` (and the JAX package's further conditions, see
     the module docstring) everything from the member-candidate distances
     to the weighted reduction is kernel K6; otherwise the ranking runs
-    here and ``feat_net`` in kernel K4."""
+    here and ``feat_net`` through ``_featnet_h`` (K4 or the XLA
+    formulation)."""
     cfg = model.cfg
     K = cfg.neighbours
     kc = int(cfg.knn_cand)
@@ -585,14 +809,17 @@ def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
     views_emb = _views_emb(cfg, state, viewdirs,
                            torch.clamp(src_sub // B, max=R - 1))
     idxl = idx.long()
-    geo = srcs.geo[idxl]                                 # [S, kc, 12]
-    feat_k = srcs.feat[idxl]                             # [S, kc, F]
+    geo, feat_k = srcs.gather(idxl)                     # [S, kc, 12 / F]
     rot = geo[..., 3:]                                   # [S, kc, 9]
     fused = (cfg.fused_agg and cfg.agg_bf16 and not srcs.has_pose_embedding
              and not render_pcd_direct and not render_weights
              and cfg.feat_depth == 4)
     direct = {}
     if fused:
+        if torch.is_grad_enabled():
+            raise ValueError("fused_agg (kernel K6) is forward-only: render "
+                             "under torch.inference_mode() or train with "
+                             "fused_agg=False")
         # kernel K6: invalid candidate slots go to a far sentinel, so they
         # rank last and a sample whose top-K reaches one is rejected
         # through kd2 (one-sided, as the inf mask below)
@@ -645,7 +872,7 @@ def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
             feat_sel = feat_k[:, None].expand(-1, share, -1, -1)
             rel_canon = torch.einsum(
                 "mkab,mskb->mska", rot.reshape(rot.shape[0], kc, 3, 3), rel_p)
-        h = _featnet_h(srcs.featnet, rel_canon, feat_sel, w_sel)
+        h = _featnet_h(srcs, rel_canon, feat_sel, w_sel)
         if render_pcd_direct:
             sig_all, a_all, c_all = srcs.direct()
             sig = sig_all[idxl][:, None, :]              # [S, 1, kc]
@@ -697,7 +924,8 @@ def _aggregate_exact(model: TemporalPoints, state, srcs, viewdirs, q, src,
                      render_weights=False):
     """Exact two-phase k-NN aggregation: count within the radius (K2;
     ``count >= K`` is the reference's kth-neighbour cutoff), compact the
-    survivors to the pass budget, select K (K3), aggregate (K4)."""
+    survivors to the pass budget, select K (K3), aggregate (``_featnet_h``:
+    K4 or the XLA formulation)."""
     cfg = model.cfg
     K = cfg.neighbours
     dev = q.device
@@ -724,14 +952,14 @@ def _aggregate_exact(model: TemporalPoints, state, srcs, viewdirs, q, src,
     views_emb = _views_emb(cfg, state, viewdirs,
                            torch.clamp(src // B, max=R - 1))
     idxl = idx.long()
-    geo = srcs.geo[idxl]                                 # [n, K, 12]
+    geo, feat_k = srcs.gather(idxl)                     # [n, K, 12 / F]
     rel_p = q[:, None, :] - geo[..., :3]
     to_nn = (rel_p ** 2).sum(-1)
     w = 1.0 / (to_nn + cfg.eps)
     w = w / w.sum(-1, keepdim=True)
     rel_canon = torch.einsum("mkab,mkb->mka",
                              geo[..., 3:].reshape(n_slots, K, 3, 3), rel_p)
-    h = _featnet_h(srcs.featnet, rel_canon, srcs.feat[idxl], w)
+    h = _featnet_h(srcs, rel_canon, feat_k, w)
     alpha, rgb = _heads(model, h, views_emb)
 
     # exact kth distance of the selected set decides the radius cutoff
@@ -769,33 +997,37 @@ def aggregate_pts(model: TemporalPoints, state, frame, rays_o, rays_d,
                   render_weights=False):
     """k-NN feature aggregation along rays, from a ``prepare_frame``
     output -> per-sample [R, B(, .)] arrays, the valid mask, ``step_id``
-    and ``knn_path``, which aggregation ran: "exact", "shared" (kernel K4)
-    or "shared_fused" (kernel K6)."""
+    and ``knn_path``, which aggregation ran: "exact", "shared" or
+    "shared_fused" (kernel K6)."""
     cfg = model.cfg
-    if not (cfg.agg_bf16 and cfg.featmlp_kernel):
-        raise NotImplementedError(
-            "only the bf16 featmlp aggregation is ported")
     occ_info = frame["occ_info"]
     R = rays_o.shape[0]
     B = cfg.sample_budget
     M_full = R * B
-    M_act = int(M_full * cfg.active_fraction)
-    M_act = min(max(1024, ((M_act + 1023) // 1024) * 1024), M_full)
+    M_act = active_budget(cfg, M_full)
     c = cfg.coarse_stride
-    if (B % c != 0 or M_act % c != 0
-            or os.environ.get("APNERF_FUSED_SAMPLER", "1") != "1"):
-        raise NotImplementedError(
-            "only the fused group sampler is ported (needs coarse_stride to "
-            "divide sample_budget and the active budget)")
     tables = occ_info["knn_tables"]
-    q, src, act_ok, step_id, act_demand = _sample_groups_fused(
-        cfg, rays_o, rays_d, near, far, occ_info["bb_min"],
-        occ_info["bb_max"], occ_info["occ"], occ_info["occ_cell"],
-        occ_info["occ_margin"], tables, query_radius, M_act)
+    bb_min, bb_max = occ_info["bb_min"], occ_info["bb_max"]
+    if (B % c == 0 and M_act % c == 0
+            and os.environ.get("APNERF_FUSED_SAMPLER", "1") == "1"):
+        q, src, act_ok, step_id, act_demand = _sample_groups_fused(
+            cfg, rays_o, rays_d, near, far, bb_min, bb_max, occ_info["occ"],
+            occ_info["occ_cell"], occ_info["occ_margin"], tables,
+            query_radius, M_act)
+        grouped = True
+    else:
+        pts, valid, step_id = sample_rays_compact(
+            cfg, rays_o, rays_d, near, far, bb_min, bb_max,
+            occ=occ_info["occ"], occ_cell=occ_info["occ_cell"],
+            occ_margin=occ_info["occ_margin"])
+        q, src, act_ok, grouped = compact_active(
+            cfg, pts, valid, bb_min, bb_max, tables=tables,
+            query_radius=query_radius)
+        act_demand = valid.sum()
     share = int(cfg.knn_share)
-    # the JAX package falls back to exact k-NN when share does not divide
-    # the coarse stride; so does the port
-    shared = share > 1 and c % share == 0
+    # the JAX package takes exact k-NN unless the samples came in groups
+    # that share divides; so does the port
+    shared = share > 1 and grouped and c % share == 0
     agg = _aggregate_subgroup_shared if shared else _aggregate_exact
     out = agg(model, state, frame["point_sources"], viewdirs, q, src, act_ok,
               R, B, M_full, M_act, query_radius, tables, act_demand,
@@ -828,12 +1060,11 @@ def _inv3x3(m: torch.Tensor) -> torch.Tensor:
     return x @ (eye2 - m @ x)
 
 
-@torch.inference_mode()
 def prepare_frame(model: TemporalPoints, state, t=None, rot_params=None,
                   query_radius: float = 0.01, calc_min_max: bool = True):
     """Per-frame state shared by all ray chunks: warp, inverse frames,
     pose embedding, occupancy grid, k-NN tables and the point sources the
-    chunks gather from (with the packed feat_net)."""
+    chunks gather from. Differentiable in the model's parameters."""
     cfg = model.cfg
     wout = warp(model, state, t=t, rot_params=rot_params)
     Rm = wout["frames"][:, :3, :3]
@@ -841,7 +1072,7 @@ def prepare_frame(model: TemporalPoints, state, t=None, rot_params=None,
                        else _inv3x3(Rm))
     wout["pose_embedding"] = None
     if cfg.pose_embedding_dim > 0:
-        delta = model.joints - wout["joints_rel"]
+        delta = (model.joints - wout["joints_rel"]).detach()
         emb = encoding.poc_fre(delta, encoding.poc_freqs(cfg.posbase_pe,
                                                          delta.device))
         wout["pose_embedding"] = model.pose_embedding_net(emb.reshape(1, -1))
@@ -853,7 +1084,6 @@ def prepare_frame(model: TemporalPoints, state, t=None, rot_params=None,
     return wout
 
 
-@torch.inference_mode()
 def forward(model: TemporalPoints, state, rays_o, rays_d, viewdirs, t=None,
             rot_params=None, near=0.0, far=1e9, bg=1.0,
             query_radius: float = 0.01, render_depth: bool = False,
@@ -990,3 +1220,45 @@ def simplify_skeleton(model: TemporalPoints, state, times,
         "old_joints": joints_np, "old_bones": bones,
     }
     return new_state, info
+
+
+# ----------------------------------------------------------------------
+# The training losses (reference lib/temporalpoints.py:714-800)
+# ----------------------------------------------------------------------
+
+def arap_loss(state, warped_pcd, eps: float = 1e-6) -> torch.Tensor:
+    """As-rigid-as-possible: summed change of the canonical k-NN distances
+    after the warp."""
+    warped_nn = torch.sqrt(((warped_pcd[:, None, :]
+                             - warped_pcd[state["nn_i"]]) ** 2).sum(-1) + eps)
+    return (state["nn_distance"] - warped_nn).abs().sum()
+
+
+def neighbour_weight_tv_loss(state, lbs_weights) -> torch.Tensor:
+    """Mean absolute skinning-weight difference to the k-NN neighbours."""
+    return (lbs_weights[:, None, :] - lbs_weights[state["nn_i"]]).abs().mean()
+
+
+def weight_sparsity_loss(lbs_weights, eps: float = 1e-6) -> torch.Tensor:
+    """Binary entropy of the skinning weights."""
+    w = lbs_weights
+    return -(w * torch.log(w + eps)
+             + (1 - w) * torch.log(1 - w + eps)).mean()
+
+
+def transformation_reg_loss(global_t, thetas) -> torch.Tensor:
+    """L1 of the global translation and the joint angles, per joint."""
+    return (global_t.abs().sum() + thetas.abs().sum()) / thetas.shape[0]
+
+
+def joint_chamfer_loss(state, joints) -> torch.Tensor:
+    """Summed squared distance of each joint to the skeleton voxels."""
+    d = ((joints[:, None, :] - state["skeleton_pcd"][None]) ** 2).sum(-1)
+    return d.amin(1).sum()
+
+
+def batch_chamfer_2d(projected, mask_pts) -> torch.Tensor:
+    """Symmetric chamfer between projected points [V, N, 2] and mask
+    pixels [V, M, 2] (reference get_batch_chamfer_loss)."""
+    d = ((projected[:, :, None, :] - mask_pts[:, None, :, :]) ** 2).sum(-1)
+    return d.amin(2).mean() + d.amin(1).mean()

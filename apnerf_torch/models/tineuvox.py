@@ -235,15 +235,17 @@ def apply_deformation(net: MLP, pts_emb, t_feature, act_dt=F32):
     return pts_emb[..., :3] + dx.float()
 
 
-def query_density_features(model: TiNeuVox, pts, times_feature):
+def query_density_features(model: TiNeuVox, pts, times_feature,
+                           canonical: bool = False):
     """PE, deformation, multi-scale grid interp, featurenet: ``pts
-    [..., 3]`` -> (h [..., W] fp32, warped pts [..., 3])."""
+    [..., 3]`` -> (h [..., W] fp32, warped pts [..., 3]). ``canonical``:
+    no deformation, the grid is read at ``pts``."""
     cfg = model.cfg
     dev = pts.device
     act_dt = _act_dtype(cfg)
     pts_emb = encoding.poc_fre(pts, encoding.poc_freqs(cfg.posbase_pe, dev))
-    pts_delta = apply_deformation(model.deformation_net, pts_emb,
-                                  times_feature, act_dt)
+    pts_delta = pts if canonical else apply_deformation(
+        model.deformation_net, pts_emb, times_feature, act_dt)
     lo, hi = _bbox(cfg, dev)
     vox_feat = mult_dist_interp(model.feature, pts_delta, lo, hi)
     vox_emb = encoding.poc_fre(vox_feat,
@@ -432,10 +434,12 @@ def forward(model: TiNeuVox, rays_o, rays_d, viewdirs, times_sel, near, far,
 # dense grid evaluation, progressive scaling, TV
 # --------------------------------------------------------------------------
 
-def grid_xyz_coords(cfg: TiNeuVoxConfig,
-                    sampling_freq: float = 1.0) -> np.ndarray:
-    """World coordinates [X, Y, Z, 3] of the grid's nodes."""
-    ws = cfg.world_size
+def grid_xyz_coords(cfg: TiNeuVoxConfig, sampling_freq: float = 1.0,
+                    world_size=None) -> np.ndarray:
+    """World coordinates [X, Y, Z, 3] of a grid spanning the bbox with
+    ``world_size`` (default the model's) times ``sampling_freq`` nodes an
+    axis (reference ``get_grid_xyz``)."""
+    ws = world_size or cfg.world_size
     axes = [np.linspace(cfg.xyz_min[d], cfg.xyz_max[d],
                         int(ws[d] * sampling_freq)) for d in range(3)]
     return np.stack(np.meshgrid(*axes, indexing="ij"), -1).astype(np.float32)
@@ -443,9 +447,13 @@ def grid_xyz_coords(cfg: TiNeuVoxConfig,
 
 @torch.no_grad()
 def eval_alpha_volume(model: TiNeuVox, grid_xyz, time_sel, stepsize,
-                      batch=2 ** 18) -> np.ndarray:
+                      canonical: bool = False, batch: int = 2 ** 18,
+                      want_features: bool = False, viewdir=None):
     """Alpha at the points ``grid_xyz [..., 3]`` at one time, ``batch``
-    points at a time; numpy in and out."""
+    points at a time; numpy in and out. ``canonical``: without the
+    deformation. ``want_features``: also the rgb (seen from ``viewdir``,
+    zeros when None) and the featurenet output ``h`` -> (alpha [...],
+    rgb [..., 3], feat [..., W]); reference ``get_grid_as_point_cloud``."""
     cfg = model.cfg
     dev = model.feature.device
     shape = np.asarray(grid_xyz).shape[:-1]
@@ -453,14 +461,30 @@ def eval_alpha_volume(model: TiNeuVox, grid_xyz, time_sel, stepsize,
     tfeat = time_feature(model, torch.full((1, 1), float(time_sel),
                                            device=dev))
     interval = stepsize * cfg.voxel_size_ratio
-    alphas = []
+    ve = None
+    if want_features and not cfg.no_view_dir:
+        vd = torch.as_tensor(np.zeros(3, np.float32) if viewdir is None
+                             else np.asarray(viewdir, np.float32),
+                             device=dev).reshape(1, 3)
+        ve = encoding.poc_fre(vd, encoding.poc_freqs(cfg.viewbase_pe, dev))
+    alphas, rgbs, feats = [], [], []
     for i in range(0, pts_all.shape[0], batch):
         pts = pts_all[i:i + batch].to(dev)
         h, _ = query_density_features(model, pts,
-                                      tfeat.expand(pts.shape[0], -1))
+                                      tfeat.expand(pts.shape[0], -1),
+                                      canonical=canonical)
         density = model.densitynet(h)[..., 0]
         alphas.append(raw2alpha(density, cfg.act_shift, interval).cpu())
-    return torch.cat(alphas).numpy().reshape(shape)
+        if want_features:
+            rgbs.append(torch.sigmoid(model.rgbnet(
+                h, None if ve is None else ve.expand(pts.shape[0], -1)))
+                .cpu())
+            feats.append(h.cpu())
+    alpha = torch.cat(alphas).numpy().reshape(shape)
+    if not want_features:
+        return alpha
+    return (alpha, torch.cat(rgbs).numpy().reshape(*shape, -1),
+            torch.cat(feats).numpy().reshape(*shape, -1))
 
 
 @torch.no_grad()

@@ -93,6 +93,7 @@ def make_points_renderer(model: tp.TemporalPoints, state, near, far, bg,
         cols[mask] = weight_palette(int(mask.sum()))
     cols_dev = torch.as_tensor(cols, device=dev)
 
+    @torch.inference_mode()
     def for_view(i, t, rot_params=None):
         use_rot = rot_params is not None
         frame = tp.prepare_frame(

@@ -73,11 +73,13 @@ def test_port_writer_round_trips(tmp_path, scene):
 def test_port_imports_no_jax(tmp_path, scene):
     """Every apnerf_torch module, then init_params, load_temporalpoints,
     the render entry points (simplify_skeleton, make_points_renderer with
-    fused_agg through render_viewpoints with every metric, repose, LPIPS)
-    and two stage-1 training steps on a tiny scene (the second on the
-    occupancy path), in a fresh interpreter: neither jax nor the JAX
-    package (apnerf) ever enters sys.modules (conftest imports jax
-    here)."""
+    fused_agg through render_viewpoints with every metric, repose, LPIPS),
+    two stage-1 training steps on a tiny scene (the second on the
+    occupancy path), then the stage-2 half: the thinning library, the
+    curriculum sampler, the export of that stage-1 model (skeletonizer
+    included) and two train_pcd steps, in a fresh interpreter: neither jax
+    nor the JAX package (apnerf) ever enters sys.modules (conftest imports
+    jax here)."""
     model, state = port_model({}, scene)
     path = tmp_path / "port.pkl"
     tck.save_temporalpoints(str(path), model, state)
@@ -136,10 +138,27 @@ def test_port_imports_no_jax(tmp_path, scene):
         "cfg.model_and_render.update(num_voxels=8 ** 3,\n"
         "                            num_voxels_base=8 ** 3, voxel_dim=4,\n"
         "                            defor_depth=2, net_width=16)\n"
-        "_, _, stats = scene_rep_reconstruction(\n"
-        "    cfg, make_scene(2, 16, 16), n_iters=2, log_every=1,\n"
-        "    device='cpu')\n"
+        "scene = make_scene(2, 16, 16)\n"
+        "m1, c1, stats = scene_rep_reconstruction(\n"
+        "    cfg, scene, n_iters=2, log_every=1, device='cpu')\n"
         "assert len(stats['loss']) == 2 and np.isfinite(stats['loss']).all()\n"
+        "from apnerf_torch.kinematics import morphology, skeletonizer\n"
+        "from apnerf_torch.train import export, stage2\n"
+        "from apnerf_torch.utils import samplers\n"
+        "vol = np.zeros((12, 8, 8), bool); vol[2:10, 3:5, 3:5] = True\n"
+        "assert morphology.skeletonize_3d(vol).any()\n"
+        "assert samplers.InverseProportionalSampler(3).sample() in range(3)\n"
+        f"art = export.export_point_cloud(m1, {str(tmp_path)!r}, 0.0, 0.5,\n"
+        "    pcd_density_threshold=0.0, skeleton_density_threshold=0.0,\n"
+        "    bone_length=3.0, canonical_pcd_num=200, overwrite=True)\n"
+        "assert skeletonizer.create_skeleton is not None\n"
+        "cfg.pcd_train_config.update(N_rand=16, full_t_iter=4)\n"
+        "_, _, _, s2 = stage2.train_pcd(\n"
+        "    cfg, scene, art['canonical'], art['skeleton'],\n"
+        "    params_to_jax(m1.state_dict()), c1,\n"
+        "    (np.asarray(c1.xyz_min), np.asarray(c1.xyz_max)), n_iters=2,\n"
+        "    log_every=1, sample_budget=16, device='cpu')\n"
+        "assert len(s2['loss']) == 2 and np.isfinite(s2['loss']).all()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'apnerf'))\n"
         "assert not bad, bad\n"

@@ -248,9 +248,10 @@ def test_render_factor_joints_and_direct(scene):
                                chunk=H * W, extra_keys=("weights", "acc"),
                                device="cpu")
     assert res["bones"].shape == (5, 2) and res["joints_2d"].shape == (6, 2)
-    j3 = ttp.prepare_frame(model, state, t=0.5)["joints_warped"]
-    want = ttp.project_points(j3, torch.tensor(poses[0]),
-                              torch.tensor(Ks[0])).numpy()
+    with torch.no_grad():       # prepare_frame is differentiable
+        j3 = ttp.prepare_frame(model, state, t=0.5)["joints_warped"]
+        want = ttp.project_points(j3, torch.tensor(poses[0]),
+                                  torch.tensor(Ks[0])).numpy()
     np.testing.assert_allclose(res["joints_2d"], want, rtol=1e-5, atol=1e-4)
     drawn = trender.overlay_skeleton(res["weights"], res["joints_2d"],
                                      res["bones"])

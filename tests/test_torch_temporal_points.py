@@ -94,6 +94,14 @@ def rot_params():
                            0.2 * np.ones((J, 1))], -1).astype(np.float32)
 
 
+@pytest.fixture(autouse=True)
+def no_grad():
+    """The render tests hold no autograd graph, as the render callers
+    hold ``torch.inference_mode()``: ``forward`` is differentiable."""
+    with torch.no_grad():
+        yield
+
+
 @pytest.fixture(scope="module")
 def scene():
     pcd, joints, bones, feat = scene_arrays()
@@ -431,15 +439,22 @@ def test_init_params_re_init_mlps(scene):
 
 
 def test_unported_options_raise(scene):
-    """What the port still lacks raises: budgets the coarse stride does
-    not divide (the non-fused sampler pair) and the non-kernel feat_net
-    formulation. (``render_pcd_direct`` and ``fused_agg`` are ported: see
-    the tests above.)"""
+    """The options this test once showed raising are ported: budgets the
+    coarse stride does not divide (the non-fused sampler pair), and
+    ``agg_bf16=False`` / ``featmlp_kernel=False`` (the XLA feat_net
+    formulation) give finite renders with foreground (their parity with
+    the JAX package is in test_torch_featnet.py and
+    test_torch_stage2_step.py). What stays refused raises: kernel K6
+    (``fused_agg``) with gradients enabled, since it has no backward."""
     model, state = port_model({}, scene)
     o, d, v = map(torch.tensor, rays())
     rot = torch.tensor(rot_params())
     for over in (dict(sample_budget=40), dict(agg_bf16=False),
                  dict(featmlp_kernel=False)):
         model.cfg = ttp.TemporalPointsConfig(**{**BASE, **over})
-        with pytest.raises(NotImplementedError):
-            ttp.forward(model, state, o, d, v, rot_params=rot)
+        out = ttp.forward(model, state, o, d, v, rot_params=rot)
+        assert np.isfinite(out["rgb_marched"].numpy()).all(), over
+        assert (out["alphainv_last"].numpy() > 0.99).mean() < 0.05, over
+    model.cfg = ttp.TemporalPointsConfig(**{**BASE, **FUSED})
+    with torch.enable_grad(), pytest.raises(ValueError):
+        ttp.forward(model, state, o, d, v, rot_params=rot)
