@@ -1,17 +1,11 @@
-"""Training configs in the duck type that ``train.stage1`` and
-``train.stage2`` read: mappings with attribute access and ``.get`` (as the
-JAX package's ``ConfigDict``), the port's own copy of the defaults."""
+"""Training configs: ``ConfigDict`` mappings with attribute access, the
+config files of ``configs/`` (``config.load_config``) and, for callers that
+build a config in code, ``nerf_default``, the nerf family's defaults."""
 from __future__ import annotations
 
+from .config import ConfigDict, dump_config, load_config  # noqa: F401
 
-class AttrDict(dict):
-    """A dict whose keys read as attributes."""
-
-    def __getattr__(self, name):
-        try:
-            return self[name]
-        except KeyError as e:
-            raise AttributeError(name) from e
+AttrDict = ConfigDict
 
 
 def nerf_default(**train_overrides) -> AttrDict:

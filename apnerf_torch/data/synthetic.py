@@ -1,37 +1,27 @@
-"""The synthetic articulated arm scene, in memory (port of
-``apnerf/data/synthetic.py`` and ``apnerf.data.dnerf.pose_spherical``).
+"""The synthetic articulated arm scene (port of
+``apnerf/data/synthetic.py``).
 
 Two capsules joined at a hinge whose angle follows time, rendered
-analytically with numpy volume marching. ``make_scene`` returns the
-``data_dict`` that ``train.stage1.scene_rep_reconstruction`` reads, as
-``apnerf.data.load_data`` builds it for a D-NeRF scene on a white
-background, without writing image files.
+analytically with numpy volume marching. ``generate_scene`` writes it to
+disk as a D-NeRF dataset (``transforms_*.json`` and RGBA PNGs) for
+``data.load_data``; ``make_scene`` returns the ``data_dict`` that
+``load_data`` builds for such a scene on a white background, without
+writing image files.
 """
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
+
+from ..utils.png import write_png
+from .dnerf import pose_spherical
 
 SEG_COLORS = np.array([[0.85, 0.3, 0.25], [0.25, 0.45, 0.85]])
 SEG_RADIUS = 0.16
 DENSITY = 60.0
 NEAR, FAR = 2.0, 6.0          # the D-NeRF near / far planes
-
-
-def pose_spherical(theta_deg, phi_deg, radius) -> np.ndarray:
-    """Camera-to-world [4, 4] on a sphere, OpenGL convention (reference
-    lib/load_dnerf.py)."""
-    theta, phi = np.deg2rad(theta_deg), np.deg2rad(phi_deg)
-    trans = np.eye(4, dtype=np.float32)
-    trans[2, 3] = radius
-    rp = np.eye(4, dtype=np.float32)
-    rp[1, 1] = np.cos(phi); rp[1, 2] = -np.sin(phi)
-    rp[2, 1] = np.sin(phi); rp[2, 2] = np.cos(phi)
-    rt = np.eye(4, dtype=np.float32)
-    rt[0, 0] = np.cos(theta); rt[0, 2] = -np.sin(theta)
-    rt[2, 0] = np.sin(theta); rt[2, 2] = np.cos(theta)
-    flip = np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]],
-                    np.float32)
-    return flip @ rt @ rp @ trans
 
 
 def _seg_dist(p, a, b):
@@ -91,6 +81,39 @@ def render_image(c2w, H, W, focal, t, n_steps=96, near=NEAR, far=FAR):
     rgba = np.zeros((len(rays_o), 4))
     rgba[hit] = np.concatenate([rgb, acc[:, None]], -1)
     return np.clip(rgba.reshape(H, W, 4), 0, 1)
+
+
+def generate_scene(out_dir, n_times=6, n_test=2, H=64, W=64,
+                   camera_angle_x=0.8, radius=4.0, overwrite=False):
+    """Write a D-NeRF-format dataset to ``out_dir``: ``n_times`` training
+    views at times evenly over [0, 1], ``n_test`` test views and one val
+    view, cameras around the scene at 25 degrees elevation; returns the
+    directory. An existing dataset is kept unless ``overwrite``."""
+    if os.path.exists(os.path.join(out_dir, "transforms_train.json")) \
+            and not overwrite:
+        return out_dir
+    for split in ("train", "test", "val"):
+        os.makedirs(os.path.join(out_dir, split), exist_ok=True)
+    focal = 0.5 * W / np.tan(0.5 * camera_angle_x)
+
+    def write_split(split, n, angle0):
+        frames = []
+        for k in range(n):
+            t = k / max(n - 1, 1)
+            c2w = pose_spherical(angle0 + 360.0 * k / n, -25.0, radius)
+            img = render_image(np.asarray(c2w), H, W, focal, t)
+            fp = f"{split}/r_{k:03d}"
+            write_png(os.path.join(out_dir, fp + ".png"),
+                      (img * 255).astype(np.uint8))
+            frames.append({"file_path": fp, "time": t,
+                           "transform_matrix": np.asarray(c2w).tolist()})
+        with open(os.path.join(out_dir, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": camera_angle_x, "frames": frames}, f)
+
+    write_split("train", n_times, 30.0)
+    write_split("test", n_test, 110.0)
+    write_split("val", 1, 200.0)
+    return out_dir
 
 
 def make_scene(n_views: int, H: int, W: int, seed: int = 0,

@@ -2,28 +2,22 @@
 (port of ``apnerf/kinematics/morphology.py``).
 
 The thinning is C++ (``apnerf_torch/native/skeletonize3d.cpp``), built with
-``g++`` at first use into ``apnerf_torch/_build/`` (git-ignored), named by
-a hash of the source, and loaded with ``ctypes``. A failed build raises:
-there is no silent fallback. ``skeletonize_python`` is the same thinning in
-Python, slow, kept as the plain version the tests hold the library to.
+``g++`` at first use into ``apnerf_torch/_build/`` (``utils.native``); a
+failed build raises: there is no silent fallback. ``skeletonize_python``
+is the same thinning in Python, slow, kept as the plain version the tests
+hold the library to.
 The rest is ``scipy.ndimage``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from itertools import product
-from pathlib import Path
 
 import numpy as np
 from scipy import ndimage
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "native" / "skeletonize3d.cpp"
-BUILD_DIR = _PKG / "_build"
-CXX_FLAGS = ["-O3", "-shared", "-fPIC"]
+from ..utils.native import build_cxx
+
 _lib = None
 
 
@@ -32,19 +26,7 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"libapnerf_skel_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp),
-                              str(SOURCE)], capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"building {SOURCE.name} failed:\n"
-                               f"{res.stdout}{res.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = build_cxx("skeletonize3d.cpp", "apnerf_skel")
     lib.apnerf_skeletonize3d.argtypes = [
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int]

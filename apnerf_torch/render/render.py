@@ -3,9 +3,9 @@
 model family, PSNR / SSIM / LPIPS accumulation, ``results.txt``, per-frame
 PNGs, and the skeleton overlay on the LBS-weight renders.
 
-``imageio`` is needed only to write files (``savedir``, ``write_video``)
-and ``cv2`` only for the overlay; a call without ``savedir`` needs
-neither.
+Images are written through the port's own PNG codec (``utils.png``);
+``imageio`` and ``cv2`` are optional: ``write_video`` takes the first
+encoder that imports, and ``cv2`` draws the skeleton overlay.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 
 from .. import resolve_device
 from ..data.rays import pixels_to_rays
+from ..utils import png
 from . import metrics
 
 try:
@@ -171,14 +172,13 @@ def render_viewpoints(render_chunk_for, render_poses, HW, Ks, test_times,
                         f"{np.mean(lp_a)}\n")
 
     if savedir is not None:
-        import imageio.v2 as imageio
         os.makedirs(savedir, exist_ok=True)
         for i, rgb in enumerate(rgbs):
-            imageio.imwrite(os.path.join(savedir, f"img_{i:03d}.png"),
-                            metrics.to8b(rgb))
+            png.write_png(os.path.join(savedir, f"img_{i:03d}.png"),
+                          metrics.to8b(rgb))
         for i, w in enumerate(weights):
-            imageio.imwrite(os.path.join(savedir, f"weights_{i:03d}.png"),
-                            metrics.to8b(w))
+            png.write_png(os.path.join(savedir, f"weights_{i:03d}.png"),
+                          metrics.to8b(w))
 
     # skeleton overlay on the weight renders
     for i in range(len(weights)):
@@ -193,19 +193,28 @@ def render_viewpoints(render_chunk_for, render_poses, HW, Ks, test_times,
 
 
 def write_video(path, frames, fps=30):
-    """mp4 via imageio/ffmpeg, else cv2 (mp4v), else an animated GIF."""
-    import imageio.v2 as imageio
+    """Write ``frames`` [T, H, W(, 3)] in [0, 1] as a video; returns the
+    file written (``None`` when there are no frames). The first encoder
+    that works: mp4 through imageio (ffmpeg), mp4v through cv2, an
+    animated GIF through imageio; where neither imageio nor cv2 imports,
+    an animated PNG (``utils.png.write_apng``) at ``path`` with the suffix
+    ``.png``."""
     frames8 = metrics.to8b(frames)
     if frames8.size == 0 or frames8.ndim < 3:
         print(f"write_video: no frames for {path}, skipped")
-        return
+        return None
     if frames8.ndim == 3:
         frames8 = frames8[..., None].repeat(3, -1)
     try:
-        imageio.mimwrite(path, frames8, fps=fps, quality=8)
-        return
-    except (ValueError, ImportError):
-        pass
+        import imageio.v2 as imageio
+    except ImportError:
+        imageio = None
+    if imageio is not None:
+        try:
+            imageio.mimwrite(path, frames8, fps=fps, quality=8)
+            return path
+        except (ValueError, ImportError):
+            pass
     if cv2 is not None:
         h, w = frames8.shape[1:3]
         vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
@@ -214,7 +223,14 @@ def write_video(path, frames, fps=30):
             for f in frames8:
                 vw.write(np.ascontiguousarray(f[..., ::-1]))  # RGB -> BGR
             vw.release()
-            return
-    gif = os.path.splitext(path)[0] + ".gif"
-    imageio.mimwrite(gif, frames8, duration=1000.0 / fps, loop=0)
-    print(f"write_video: no mp4 backend, wrote {gif}")
+            return path
+    if imageio is not None:
+        gif = os.path.splitext(path)[0] + ".gif"
+        imageio.mimwrite(gif, frames8, duration=1000.0 / fps, loop=0)
+        print(f"write_video: no mp4 backend, wrote {gif}")
+        return gif
+    apng = os.path.splitext(path)[0] + ".png"
+    png.write_apng(apng, frames8, fps=fps)
+    print(f"write_video: neither imageio nor cv2 is installed, wrote the "
+          f"animated PNG {apng}")
+    return apng

@@ -7,14 +7,13 @@ grid; the grid's sampling frequency is searched (bracketing steps of 0.1
 under a 30-round guard, then up to 10 halvings) until the cleaned volume
 holds about ``canonical_pcd_num`` points; the canonical point cloud
 (positions, rgb, features, alpha, bounds, voxel size) is saved, the volume
-re-binarised at the skeleton threshold and skeletonised. Artifacts are
-pickles with the key schema of the JAX package (and the reference's
-tars; the canonical one adds ``sampling_freq``, the frequency found),
-plus ASCII ``.pcd`` files for external viewers.
-
-Not ported yet (raise ``NotImplementedError``): seeding stage 2 from the
-reference's torch tars (``pcds/canonical.tar``) and the ZJU SMPL skeleton
-prior (``smpl_skeleton_datadir``); both wait for the dataset loaders.
+re-binarised at the skeleton threshold and skeletonised, or, for a ZJU
+subject with ``smpl_skeleton_datadir``, given the SMPL joint prior
+(``kinematics.zju_skeletons``). Artifacts are pickles with the key schema
+of the JAX package (and the reference's tars; the canonical one adds
+``sampling_freq``, the frequency found), plus ASCII ``.pcd`` files for
+external viewers. The reference's own export (``pcds/canonical.tar`` /
+``skeleton.tar``, written by ``torch.save``) seeds stage 2 when present.
 """
 from __future__ import annotations
 
@@ -22,10 +21,49 @@ import os
 import pickle
 
 import numpy as np
+import torch
 
 from ..kinematics.morphology import preprocess_volume
 from ..kinematics.skeletonizer import create_skeleton
+from ..kinematics.zju_skeletons import smpl_skeleton_for
 from ..models import tineuvox
+
+
+def _numpy_globals():
+    """The numpy globals a pickled array needs, under the module names of
+    numpy 1 and 2 (the globals the JAX package's tar reader allows)."""
+    core = getattr(np, "_core", None) or np.core
+    out = [np.ndarray, np.dtype]
+    # numpy >= 1.25 builds a dtype through its class (np.dtypes)
+    dtypes = getattr(np, "dtypes", None)
+    if dtypes is not None:
+        out += [getattr(dtypes, n) for n in dir(dtypes)
+                if n.endswith("DType")]
+    for fn in (core.multiarray._reconstruct, core.multiarray.scalar):
+        out += [(fn, f"numpy.{m}.multiarray.{fn.__name__}")
+                for m in ("core", "_core")]
+    return out
+
+
+def _to_numpy(obj):
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    if isinstance(obj, dict):
+        return type(obj)((k, _to_numpy(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_numpy(v) for v in obj)
+    return obj
+
+
+def load_reference_tar(path):
+    """A ``torch.save`` archive of the reference's export, read with
+    ``torch.load(weights_only=True)`` and numpy's array globals allowed:
+    tensors become numpy arrays (bf16 as fp32), containers and scalars
+    pass through. Any other global raises ``pickle.UnpicklingError``."""
+    with torch.serialization.safe_globals(_numpy_globals()):
+        return _to_numpy(torch.load(path, map_location="cpu",
+                                    weights_only=True))
 
 
 def write_pcd(path, points, colors=None):
@@ -61,10 +99,11 @@ def export_point_cloud(model: tineuvox.TiNeuVox, out_dir, canonical_t: float,
     """Export the stage-1 ``model`` -> ``{"canonical": ..., "skeleton":
     ...}``, written to ``out_dir/pcds`` (``canonical.pkl``,
     ``skeleton.pkl`` and their ``.pcd``); existing pickles are returned
-    unless ``overwrite``. The model runs on its own device."""
-    if smpl_skeleton_datadir is not None:
-        raise NotImplementedError("the ZJU SMPL skeleton prior is not ported")
-    model_cfg = model.cfg
+    unless ``overwrite``; else the reference's tars
+    (``canonical.tar`` and ``skeleton.tar``) there, when both exist.
+    ``smpl_skeleton_datadir``: a ZJU subject's data path, whose SMPL joint
+    prior replaces the skeletonizer when one is found. The model runs on
+    its own device."""
     pcd_dir = os.path.join(out_dir, "pcds")
     os.makedirs(pcd_dir, exist_ok=True)
     can_path = os.path.join(pcd_dir, "canonical.pkl")
@@ -76,11 +115,18 @@ def export_point_cloud(model: tineuvox.TiNeuVox, out_dir, canonical_t: float,
         with open(skel_path, "rb") as f:
             skeleton = pickle.load(f)
         return {"canonical": canonical, "skeleton": skeleton}
-    if (os.path.exists(os.path.join(pcd_dir, "canonical.tar"))
-            and os.path.exists(os.path.join(pcd_dir, "skeleton.tar"))
+    can_tar = os.path.join(pcd_dir, "canonical.tar")
+    skel_tar = os.path.join(pcd_dir, "skeleton.tar")
+    if (os.path.exists(can_tar) and os.path.exists(skel_tar)
             and not overwrite):
-        raise NotImplementedError("loading the reference's torch export "
-                                  "tars is not ported")
+        canonical = load_reference_tar(can_tar)
+        skeleton = load_reference_tar(skel_tar)
+        skeleton["bones"] = [list(map(int, b)) for b in skeleton["bones"]]
+        print("export: loaded reference torch artifacts "
+              f"({len(canonical['pcd'])} points, "
+              f"{len(skeleton['bones'])} bones)")
+        return {"canonical": canonical, "skeleton": skeleton}
+    model_cfg = model.cfg
 
     def volume_at(freq):
         grid_xyz = tineuvox.grid_xyz_coords(model_cfg, freq)
@@ -156,8 +202,15 @@ def export_point_cloud(model: tineuvox.TiNeuVox, out_dir, canonical_t: float,
         pickle.dump(canonical, f)
     write_pcd(os.path.join(pcd_dir, "canonical.pcd"), points, rgb_pts)
 
-    binary = preprocess_volume(alpha, skeleton_density_threshold, sigma=0)
-    skeleton = create_skeleton(binary, grid_xyz, bone_length=bone_length)
+    skeleton = None
+    if smpl_skeleton_datadir is not None:
+        skeleton = smpl_skeleton_for(smpl_skeleton_datadir)
+        if skeleton is not None:
+            print("export: using SMPL joint prior for the skeleton")
+    if skeleton is None:
+        binary = preprocess_volume(alpha, skeleton_density_threshold,
+                                   sigma=0)
+        skeleton = create_skeleton(binary, grid_xyz, bone_length=bone_length)
     with open(skel_path, "wb") as f:
         pickle.dump(skeleton, f)
     write_pcd(os.path.join(pcd_dir, "skeleton.pcd"),

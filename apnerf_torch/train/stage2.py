@@ -6,7 +6,11 @@ step's rays drawn from one time's contiguous range of the ray index, the
 seven-term loss (render MSE, ARAP, skinning-weight TV, weight sparsity
 from ``weight_start_iter``, transformation regulariser, joint chamfer, 2D
 mask chamfer), autograd through the point model's forward, masked Adam
-with per-step lr decay, and mid-stage checkpoints with resume.
+with per-step lr decay, mid-stage checkpoints with resume, and with a
+``tensorboard_path`` the previews: the loss terms as scalars and, every
+``i_save`` steps, three training views beside their renders
+(``payload``) and a GT | direct | full | LBS-weights panel sequence
+(``video_panels``, also written as a video there).
 
 Host randomness draws from ``np.random.default_rng(seed)`` and the
 sampler's own generator in the JAX package's order, so both packages
@@ -20,8 +24,12 @@ exception would hide a kernel fault), and a checkpoint also carries the
 host random state (``host_rng``), so a run resumed from the port's own
 checkpoint takes the same batches as one never interrupted (from the JAX
 package's checkpoint, which has none, it starts the generators anew, as
-the JAX package does). Not ported yet (raise ``NotImplementedError``): the
-multi-device ``mesh`` and the tensorboard previews (``tensorboard_path``).
+the JAX package does); a failure to write the comparison video is not
+caught (``render.write_video`` has an encoder of its own). The previews'
+writer is ``torch.utils.tensorboard.SummaryWriter`` where tensorboard
+imports; without it, nothing is written and, as in the JAX package, no
+preview view is drawn from the batch generator. Not ported yet (raises
+``NotImplementedError``): the multi-device ``mesh``.
 """
 from __future__ import annotations
 
@@ -37,6 +45,9 @@ from .. import resolve_device
 from ..data import rays as raydata
 from ..models import temporal_points as tp
 from ..ops.knn import knn
+from ..ops.marching import composite
+from ..render.render import write_video
+from ..render.renderers import weight_palette
 from ..utils import checkpoint as ckpt
 from ..utils.samplers import InverseProportionalSampler, curriculum_window
 from .masked_adam import MaskedAdam
@@ -266,9 +277,6 @@ def train_pcd(cfg, data_dict, canonical, skeleton, tineuvox_params,
     if mesh is not None:
         raise NotImplementedError("multi-device stage-2 training (mesh) is "
                                   "not ported")
-    if tensorboard_path:
-        raise NotImplementedError("the tensorboard previews and comparison "
-                                  "video are not ported")
     dev = resolve_device(device)
     cfg_train = cfg.pcd_train_config
     n_iters = n_iters or int(cfg_train.N_iters)
@@ -357,53 +365,152 @@ def train_pcd(cfg, data_dict, canonical, skeleton, tineuvox_params,
     def tensor(x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
-    stats: Dict[str, Any] = {"psnr": [], "loss": [], "terms": []}
-    t0 = time.time()
-    for global_step in range(1 + start_step, n_iters + 1):
-        t_max, t_min = curriculum_window(global_step, len(unique_times),
-                                         full_t_iter, canonical_idx)
-        rnd_i = sampler.sample(t_min, t_max)
-        t_key = float(unique_times[rnd_i])
-        b_lo, b_hi = ray_index.index_to_times[t_key]
-        sel = rng.integers(b_lo, b_hi, size=n_rand)
-        rgb, mval, _, cam, pix = ray_index.gather(sel)
-        batch = {
-            "rgb": tensor(rgb), "mask": tensor(mval),
-            "t": np.float32(t_key),
-            "cam": tensor(cam, torch.int64), "pix": tensor(pix, torch.int64),
-            "sparsity_on": 1.0 if global_step >= weight_start_iter else 0.0,
-        }
-        if n_chamfer_views > 0:
-            img_rows = imgs_by_time[t_key]
-            pick = rng.permutation(len(img_rows))[:n_chamfer_views]
-            rows = img_rows[pick]
-            if pose_one_each:
-                cams_sel = ray_index.img_cam[rows]
-            else:
-                cams_sel = pick % len(data_dict["poses"])
-            mask_pts = np.stack([
-                mask_pix[r][rng.integers(0, len(mask_pix[r]), CH_M)]
-                for r in rows], 0)
-            cams_t = tensor(cams_sel, torch.int64)
-            batch["chamfer_poses"] = poses[cams_t]
-            batch["chamfer_Ks"] = Ks[cams_t]
-            batch["chamfer_mask_pts"] = tensor(mask_pts)
-            batch["chamfer_pcd_idx"] = tensor(
-                rng.integers(0, mcfg.n_points, CH_N), torch.int64)
+    writer = None
+    if tensorboard_path:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            print("stage2: tensorboard unavailable, logging to console only")
+        else:
+            writer = SummaryWriter(tensorboard_path)
+    bg = float(cfg_train.bg_col)
+    w_cols = tensor(weight_palette(mcfg.n_joints).astype(np.float32))
 
-        metrics = step_fn(batch)
+    def view_rays(cam, factor):
+        """The rays of camera ``cam``'s view at 1 / ``factor`` size."""
+        h, w = H // factor, W // factor
+        K = np.array(data_dict["Ks"][cam], np.float32)
+        K[:2, :3] /= factor
+        pix = torch.arange(h * w, device=dev)
+        return raydata.pixels_to_rays(
+            tensor(K)[None], tensor(data_dict["poses"][cam])[None],
+            torch.zeros_like(pix), pix, h, w, **flips)
 
-        if global_step % log_every == 0 or global_step == n_iters:
-            terms = {k: float(v) for k, v in metrics.items()}
-            psnr = -10.0 * np.log10(max(terms["mse"], 1e-12))
-            stats["psnr"].append(psnr)
-            stats["loss"].append(terms["loss"])
-            stats["terms"].append(terms)
-            print(f"stage2: iter {global_step:6d} | loss "
-                  f"{terms['loss']:.5f} | psnr {psnr:5.2f} | "
-                  f"t {t_min}-{t_max} | {time.time() - t0:.1f}s")
-            if callback is not None:
-                callback(global_step, model, mcfg, state, stats)
-        if ckpt_path and ckpt_every and global_step % ckpt_every == 0:
-            save_progress(global_step)
+    def gt_image(row, factor):
+        gt = np.asarray(data_dict["images"][i_train[row]], np.float32)
+        if gt.max() > 1.5:
+            gt = gt / 255.0
+        return gt[::factor, ::factor, :3]
+
+    @torch.no_grad()
+    def render_preview(img_row, factor=4):
+        """(render, gt image) of training image row ``img_row``."""
+        ro, rd, vd = view_rays(int(ray_index.img_cam[img_row]), factor)
+        res = tp.forward(model, state, ro, rd, vd,
+                         t=float(ray_index.img_time[img_row]), near=near,
+                         far=far, bg=bg)
+        rgb = res["rgb_marched"].cpu().numpy()
+        return (rgb.reshape(H // factor, W // factor, 3),
+                gt_image(img_row, factor))
+
+    @torch.no_grad()
+    def render_comparison_video(n_frames=6, factor=4):
+        """GT | direct-pcd | full | LBS-weights panels of the first
+        training camera over times evenly in [0, 1] -> [T, h, 4w, 3]
+        (reference run.py:772-811)."""
+        h, w = H // factor, W // factor
+        cam0 = int(ray_index.img_cam[0])
+        ro, rd, vd = view_rays(cam0, factor)
+        cam_rows = np.where(ray_index.img_cam == cam0)[0]
+        frames = []
+        for tq in np.linspace(0.0, 1.0, n_frames):
+            # GT: this camera's training image nearest in time
+            r = cam_rows[np.argmin(
+                np.abs(ray_index.img_time[cam_rows] - tq))]
+            res = tp.forward(model, state, ro, rd, vd,
+                             t=float(np.float32(tq)), near=near, far=far,
+                             bg=bg, render_weights=True,
+                             render_pcd_direct=True)
+            col = torch.einsum("rbj,jc->rbc", res["lbs_w_per_sample"],
+                               w_cols)
+            wimg = composite(res["weights_for_render"], col, bg=bg,
+                             alphainv_last=res["alphainv_for_render"])
+            panels = [gt_image(r, factor)] + [
+                x.cpu().numpy().reshape(h, w, 3)
+                for x in (res["rgb_marched_direct"], res["rgb_marched"],
+                          wimg)]
+            frames.append(np.clip(np.concatenate(panels, axis=1), 0, 1))
+        return np.stack(frames)
+
+    def previews(step):
+        rows = rng.integers(0, len(i_train), 3)
+        panels = []
+        for r in rows:
+            pred, gt = render_preview(int(r))
+            panels.append(np.concatenate([gt, pred], axis=1))
+        grid = np.clip(np.concatenate(panels, axis=0), 0, 1)
+        writer.add_image("payload", grid.transpose(2, 0, 1), step)
+        vid = render_comparison_video()
+        writer.add_images("video_panels", vid.transpose(0, 3, 1, 2), step)
+        write_video(os.path.join(tensorboard_path,
+                                 f"comparison_{step:06d}.mp4"), vid, fps=4)
+
+    try:
+        stats: Dict[str, Any] = {"psnr": [], "loss": [], "terms": []}
+        t0 = time.time()
+        for global_step in range(1 + start_step, n_iters + 1):
+            t_max, t_min = curriculum_window(global_step, len(unique_times),
+                                             full_t_iter, canonical_idx)
+            rnd_i = sampler.sample(t_min, t_max)
+            t_key = float(unique_times[rnd_i])
+            b_lo, b_hi = ray_index.index_to_times[t_key]
+            sel = rng.integers(b_lo, b_hi, size=n_rand)
+            rgb, mval, _, cam, pix = ray_index.gather(sel)
+            batch = {
+                "rgb": tensor(rgb), "mask": tensor(mval),
+                "t": np.float32(t_key),
+                "cam": tensor(cam, torch.int64),
+                "pix": tensor(pix, torch.int64),
+                "sparsity_on": (1.0 if global_step >= weight_start_iter
+                                else 0.0),
+            }
+            if n_chamfer_views > 0:
+                img_rows = imgs_by_time[t_key]
+                pick = rng.permutation(len(img_rows))[:n_chamfer_views]
+                rows = img_rows[pick]
+                if pose_one_each:
+                    cams_sel = ray_index.img_cam[rows]
+                else:
+                    cams_sel = pick % len(data_dict["poses"])
+                mask_pts = np.stack([
+                    mask_pix[r][rng.integers(0, len(mask_pix[r]), CH_M)]
+                    for r in rows], 0)
+                cams_t = tensor(cams_sel, torch.int64)
+                batch["chamfer_poses"] = poses[cams_t]
+                batch["chamfer_Ks"] = Ks[cams_t]
+                batch["chamfer_mask_pts"] = tensor(mask_pts)
+                batch["chamfer_pcd_idx"] = tensor(
+                    rng.integers(0, mcfg.n_points, CH_N), torch.int64)
+
+            metrics = step_fn(batch)
+
+            if global_step % log_every == 0 or global_step == n_iters:
+                terms = {k: float(v) for k, v in metrics.items()}
+                psnr = -10.0 * np.log10(max(terms["mse"], 1e-12))
+                stats["psnr"].append(psnr)
+                stats["loss"].append(terms["loss"])
+                stats["terms"].append(terms)
+                print(f"stage2: iter {global_step:6d} | loss "
+                      f"{terms['loss']:.5f} | psnr {psnr:5.2f} | "
+                      f"t {t_min}-{t_max} | {time.time() - t0:.1f}s")
+                if writer is not None:
+                    writer.add_scalar("metrics/PSNR", psnr, global_step)
+                    for k in ("mse", "arap", "weight_tv", "sparsity",
+                              "trans_reg", "joint_chamfer", "chamfer2d",
+                              "loss"):
+                        if k in terms:
+                            writer.add_scalar(f"metrics/{k}", terms[k],
+                                              global_step)
+                    writer.add_scalar("metrics/eps_time", time.time() - t0,
+                                      global_step)
+                if callback is not None:
+                    callback(global_step, model, mcfg, state, stats)
+            if ckpt_path and ckpt_every and global_step % ckpt_every == 0:
+                save_progress(global_step)
+            if writer is not None and (global_step % i_save == 0
+                                       or global_step == 1):
+                previews(global_step)
+    finally:
+        if writer is not None:
+            writer.close()
     return model, mcfg, state, stats

@@ -99,8 +99,25 @@ and no result line is printed):
    ``render_view`` of the trained model with foreground (opacity over
    ``STAGE2_FG_ACC`` on at least half the training mask's share of the
    view).
-8. a JSON line of the kernels (each kernel's launches summed over the
-   paths of phases 4-7, and by path), the nvidia-smi line, and last
+8. cli -- ``apnerf_torch.cli.main`` (``python -m apnerf_torch.cli``) on
+   a D-NeRF dataset that ``generate_scene`` writes to disk (``CLI_SIZE``
+   PNGs read with ``half_res``), in a temporary working directory: (1)
+   train both stages with the nerf family's jumpingjacks config at full
+   width, cut in steps (``CLI_STAGE1_STEPS`` / ``CLI_STAGE2_STEPS``):
+   the checkpoints and exports written, finite and falling losses, the
+   export inside ``PCD_BAND``, K5 in stage 1, K1 once, K2 and K3 every
+   stage-2 step, K4 (``featmlp_train``, so that the render takes it); (2) ``--render_only --load_test_val --render_test
+   --render_pcd --eval_psnr --eval_ssim`` (exact k-NN, K1-K4): PNGs read
+   back with ``utils.png`` equal to the rendered images, ``results.txt``,
+   the render against the same invocation through the plain versions
+   (foreground PSNR >= ``CLI_PSNR_MIN_DB``, beside the control's); (3)
+   ``--repose_pcd --degree_threshold 30`` with the shared k-NN and
+   ``fused_agg``: K6 and not K4, 60 frames and the video (or its
+   animated-PNG stand-in); (4) the backbone's ``--render_test``. Times:
+   the scene, a PNG decode, stage-1 and stage-2 ms/step, the export, each
+   invocation.
+9. a JSON line of the kernels (each kernel's launches summed over the
+   paths of phases 4-8, and by path), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -260,6 +277,26 @@ K4_BACKWARD_REL_ERR = 1e-5
 # STAGE2_FG_ACC cover at least half the share of the training view's
 # mask (read: 0.0426 against the mask's 0.0295).
 STAGE2_FG_ACC = 0.1
+# Phase 8 (cli). The scene is written as PNGs of CLI_SIZE and read with the
+# nerf family's half_res, as a D-NeRF scene is. CLI_STAGE1_STEPS: phase
+# 7's stage-1 count at its export (which bracketed). CLI_SAMPLE_BUDGET: the
+# arm is crossed in 99 steps, so the family's budget of 192 would be
+# capped at 99, which no coarse_stride that is a multiple of 16 divides;
+# 96, the bench scene's budget, is divided by 16 and 32, so stage 2 trains
+# on the fused group sampler and the fused repose takes K6.
+CLI_SIZE = 800
+CLI_TRAIN_VIEWS, CLI_TEST_VIEWS = 6, 2
+CLI_STAGE1_STEPS = TRAIN_STEPS + EXPORT_STEPS
+CLI_STAGE2_STEPS = 20
+CLI_SAMPLE_BUDGET = 96
+# CLI_PSNR_MIN_DB: the CLI's render of its trained model (exact k-NN, K4)
+# against the same invocation through the plain versions, on the
+# foreground, read 112.71 / 113.00 dB, the control render (the plain K4
+# without its per-layer bf16 round) 87.39 dB (NVIDIA H100 80GB HBM3,
+# 700 W); the gate sits between them. PSNR_MIN_DB's readings belong to
+# phase 5's random weights: the trained heads turn one bf16 step of h
+# into a larger change of density and colour.
+CLI_PSNR_MIN_DB = 100.0
 
 
 def nvidia_smi_line() -> str:
@@ -1553,8 +1590,7 @@ def phase_views(torch, ckpt_dir, stage1_model, stage1_data, stepsize):
             or not np.isfinite(out["depths"]).all():
         raise AssertionError(f"render views: bad images {rgbs.shape}")
     # over the foreground only: the background is bg whatever K6 gives
-    fg_mask = ((1.0 - rgbs.min(-1)) > 1e-3) | ((1.0 - ref["rgbs"].min(-1))
-                                               > 1e-3)
+    fg_mask = foreground(rgbs, ref["rgbs"])
     fg = float(fg_mask.mean())
     if fg < 0.01:
         raise AssertionError(f"render views: background-only images "
@@ -2074,6 +2110,304 @@ def phase_stage2(torch, data, ckpt_dir, stage1_cfg):
             "stage2 load and render": load_launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the command line -- python -m apnerf_torch.cli's main on a
+# D-NeRF dataset written to disk
+# ---------------------------------------------------------------------------
+def cli_configs(scene_dir):
+    """(train / render config, the repose config over it) as file texts:
+    the nerf family's jumpingjacks config at full width, cut in steps
+    (and pg_scale to one rebuild inside the run, occupancy from step 2, as
+    phase 4), with ``CLI_SAMPLE_BUDGET`` and ``featmlp_train`` (a
+    checkpoint's ``featmlp_kernel`` decides whether its render takes K4:
+    as in the JAX package, a model trained without it renders through the
+    XLA formulation); the repose config adds the subgroup-shared k-NN and
+    fused_agg."""
+    base = REPO / "apnerf_torch" / "config" / "configs" / "nerf" / \
+        "jumpingjacks.py"
+    train = (f"_base_ = {str(base)!r}\n"
+             f"expname = 'arm'\nbasedir = './logs/'\n"
+             f"data = dict(datadir={str(scene_dir)!r}, half_res=True)\n"
+             f"train_config = dict(N_iters={CLI_STAGE1_STEPS}, "
+             f"pg_scale=[4], occupancy_start=2)\n"
+             f"pcd_train_config = dict(N_iters={CLI_STAGE2_STEPS})\n"
+             f"pcd_model_and_render = dict("
+             f"sample_budget={CLI_SAMPLE_BUDGET}, featmlp_train=True)\n")
+    fused = ("_base_ = './cli_train.py'\n"
+             "pcd_model_and_render = dict(knn_share=16, knn_cand=8, "
+             "coarse_stride=32, fused_agg=True)\n")
+    return train, fused
+
+
+@contextmanager
+def record(mod, name, store, timed=False):
+    """``mod.name`` wrapped: each call's result (and, ``timed``, its
+    synchronized seconds) appended to ``store[name]``."""
+    import torch
+    real = getattr(mod, name)
+
+    def wrapper(*args, **kwargs):
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        if timed:
+            torch.cuda.synchronize()
+        store.setdefault(name, []).append(
+            (out, time.perf_counter() - t0) if timed else out)
+        return out
+    with mock.patch.object(mod, name, wrapper):
+        yield
+
+
+@contextmanager
+def timed_steps(stage2, log):
+    """Every stage-2 step of ``train_pcd`` timed (synchronized) and its
+    loss logged: ``log`` gets (seconds, loss) a step."""
+    import torch
+    real = stage2.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def timed(batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize()
+            log.append((time.perf_counter() - t0, float(out["loss"])))
+            return out
+        return timed
+    with mock.patch.object(stage2, "make_train_step", make):
+        yield
+
+
+def cli_run(torch, argv, store=None):
+    """``cli.main(argv)`` on the card (no device given) with the launch
+    counts at 0 just before it -> (launch counts, seconds, what
+    ``render_viewpoints`` returned, one entry a call)."""
+    from apnerf_torch import cli, kernels
+    from apnerf_torch.render import render as rmod
+    store = {} if store is None else store
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with record(rmod, "render_viewpoints", store):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    return (dict(kernels.LAUNCHES), time.perf_counter() - t0,
+            store.get("render_viewpoints", []))
+
+
+def foreground(a, b):
+    """Pixels off the white background in either of two image stacks."""
+    return ((1.0 - a.min(-1)) > 1e-3) | ((1.0 - b.min(-1)) > 1e-3)
+
+
+def phase_cli(torch):
+    """Phase 8: the command line on a D-NeRF dataset on disk. Returns the
+    launch counts of its four invocations, summed."""
+    t_phase = time.perf_counter()
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        writer = "found (torch.utils.tensorboard)"
+    except ImportError:
+        writer = "not found: no previews"
+    with tempfile.TemporaryDirectory() as work, working_dir(work):
+        return cli_invocations(torch, work, writer, t_phase)
+
+
+@contextmanager
+def working_dir(path):
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+
+
+def cli_invocations(torch, work, writer, t_phase):
+    """Phase 8's body, in the working directory ``work``."""
+    import glob
+    from apnerf_torch.data.synthetic import generate_scene
+    from apnerf_torch.render.metrics import to8b
+    from apnerf_torch.train import export, stage1, stage2
+    from apnerf_torch.utils import png
+    t0 = time.perf_counter()
+    scene = generate_scene(os.path.join(work, "scene", "arm"),
+                           n_times=CLI_TRAIN_VIEWS, n_test=CLI_TEST_VIEWS,
+                           H=CLI_SIZE, W=CLI_SIZE)
+    scene_s = time.perf_counter() - t0
+    # one decode of a written file (the writer's Sub rows) and of the same
+    # image with Paeth rows (the anti-diagonal walk)
+    first = os.path.join(scene, "train", "r_000.png")
+    t0 = time.perf_counter()
+    img = png.read_png(first)
+    dec_sub = time.perf_counter() - t0
+    paeth = os.path.join(work, "paeth.png")
+    png.write_png(paeth, img, filter_type=4)
+    t0 = time.perf_counter()
+    same = np.array_equal(png.read_png(paeth), img)
+    dec_paeth = time.perf_counter() - t0
+    if img.shape != (CLI_SIZE, CLI_SIZE, 4) or not same:
+        raise AssertionError(f"cli: png {img.shape}, Paeth round trip "
+                             f"{same}")
+    cfg_train, cfg_fused = cli_configs(scene)
+    Path("cli_train.py").write_text(cfg_train)
+    Path("cli_fused.py").write_text(cfg_fused)
+    run = os.path.join("logs", "arm")
+    print(f"cli scene: generate_scene wrote {CLI_TRAIN_VIEWS} train, "
+          f"{CLI_TEST_VIEWS} test and 1 val RGBA PNGs of {CLI_SIZE}x"
+          f"{CLI_SIZE} in {scene_s:.1f} s (numpy ray march on the host); "
+          f"read_png of one: {1e3 * dec_sub:.1f} ms (Sub rows), "
+          f"{1e3 * dec_paeth:.1f} ms (Paeth rows); tensorboard writer "
+          f"{writer}", flush=True)
+
+    # ---- 1. train both stages
+    from apnerf_torch import cli
+    store, steps2 = {}, []
+    with record(cli, "load_everything", store, timed=True), \
+            record(stage1, "scene_rep_reconstruction", store), \
+            record(export, "export_point_cloud", store, timed=True), \
+            timed_steps(stage2, steps2):
+        launches, train_s, _ = cli_run(
+            torch, ["--config", "cli_train.py", "--i_print", "5",
+                    "--i_save", "10"])
+    for f in ("fine_last.pkl", "pcds/canonical.pkl", "pcds/skeleton.pkl",
+              "temporalpoints_last.pkl"):
+        if not os.path.isfile(os.path.join(run, f)):
+            raise AssertionError(f"cli train: {f} was not written")
+    _, _, s1 = store["scene_rep_reconstruction"][0]
+    art, export_s = store["export_point_cloud"][0]
+    load_s = store["load_everything"][0][1]
+    l1 = np.asarray(s1["loss"])
+    l2 = np.asarray([loss for _, loss in steps2])
+    third = max(1, len(l2) // 3)
+    n_pts = len(art["canonical"]["pcd"])
+    if (len(l1) != CLI_STAGE1_STEPS // 5 or not np.isfinite(l1).all()
+            or not l1[-3:].mean() < l1[0]):
+        raise AssertionError(f"cli train: stage-1 losses {l1}")
+    if (len(l2) != CLI_STAGE2_STEPS or not np.isfinite(l2).all()
+            or not l2[-third:].mean() < l2[:third].mean()):
+        raise AssertionError(f"cli train: stage-2 losses {l2}")
+    if not PCD_BAND[0] <= n_pts <= PCD_BAND[1]:
+        raise AssertionError(f"cli train: {n_pts} points exported")
+    if (launches["scatter"] == 0 or launches["knn_brute"] != 1
+            or launches["knn_count"] < CLI_STAGE2_STEPS
+            or launches["knn_radius"] < CLI_STAGE2_STEPS
+            or launches["featmlp"] == 0 or launches["agg"]):
+        raise AssertionError(f"cli train: launches {launches}")
+    secs = [0.0] + s1["seconds"]
+    s1_ms = [200.0 * (b - a) for a, b in zip(secs[1:-1], secs[2:])]
+    s2_ms = [1e3 * s for s, _ in steps2[1:]]
+    tb = sorted(os.listdir(os.path.join("logs", "tensorboard", "arm"))) \
+        if os.path.isdir(os.path.join("logs", "tensorboard", "arm")) else []
+    print(f"cli train: python -m apnerf_torch.cli --config <jumpingjacks, "
+          f"N_iters {CLI_STAGE1_STEPS} / {CLI_STAGE2_STEPS}> --i_print 5 "
+          f"--i_save 10 in {train_s:.1f} s ({nvidia_smi_line()}): the "
+          f"dataset loaded (PNG decode, half_res) in {load_s:.2f} s; stage 1 "
+          f"{statistics.median(s1_ms):.1f} ms/step (median over 5-step "
+          f"intervals after the first: {[round(x, 1) for x in s1_ms]}), "
+          f"losses {[round(float(x), 5) for x in l1]}; export "
+          f"{export_s:.1f} s, {n_pts} points, "
+          f"{len(art['skeleton']['bones'])} bones; stage 2 "
+          f"{statistics.median(s2_ms):.1f} ms/step (median of steps "
+          f"2-{CLI_STAGE2_STEPS}, synchronized), losses "
+          f"{[round(float(x), 4) for x in l2]}; launches {launches}; "
+          f"tensorboard files {tb}", flush=True)
+    total = dict(launches)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # ---- 2. evaluate the test views, exact k-NN (K1-K4), against the
+    # same invocation through the plain versions and the control
+    argv = ["--config", "cli_train.py", "--render_only", "--load_test_val",
+            "--render_test", "--render_pcd", "--eval_psnr", "--eval_ssim"]
+    with plain_kernels():
+        _, _, (ref,) = cli_run(torch, argv)
+    with plain_kernels(featmlp_fp32_layers):
+        _, _, (ctl,) = cli_run(torch, argv)
+    launches, eval_s, (out,) = cli_run(torch, argv)
+    add(launches)
+    outdir = os.path.join(run, "render_test_temporalpoints_last")
+    rgbs = out["rgbs"]
+    pngs = sorted(glob.glob(os.path.join(outdir, "img_*.png")))
+    back = np.stack([png.read_png(p) for p in pngs])
+    results = Path(outdir, "results.txt").read_text()
+    psnr_txt = float(results.split("psnr:")[1].split()[0])
+    half = CLI_SIZE // 2
+    fg = foreground(rgbs, ref["rgbs"])
+    p_db = psnr(rgbs, ref["rgbs"], fg)
+    c_db = psnr(ctl["rgbs"], ref["rgbs"], fg)
+    idle = [k for k in RENDER_KERNELS if launches[k] == 0]
+    if (rgbs.shape != (CLI_TEST_VIEWS, half, half, 3)
+            or not np.isfinite(rgbs).all() or idle or launches["agg"]
+            or not np.array_equal(back, to8b(rgbs))
+            or not np.isfinite(psnr_txt) or fg.mean() < 0.01):
+        raise AssertionError(f"cli render test: {rgbs.shape}, launches "
+                             f"{launches}, psnr {psnr_txt}, foreground "
+                             f"{fg.mean():.4f}, {len(pngs)} PNGs")
+    print(f"cli render test: --render_only --load_test_val --render_test "
+          f"--render_pcd --eval_psnr --eval_ssim, {CLI_TEST_VIEWS} views of "
+          f"{half}x{half}, exact k-NN, in {eval_s:.1f} s "
+          f"({1e3 * eval_s / CLI_TEST_VIEWS:.1f} ms a view, the "
+          f"checkpoint load and metrics included; {nvidia_smi_line()}): "
+          f"results.txt psnr {psnr_txt:.3f} vs the test images, ssim "
+          f"{np.mean(out['ssims']):.4f}; kernel vs plain {p_db:.2f} dB on "
+          f"the foreground {fg.mean():.3f} (gate {CLI_PSNR_MIN_DB:g}; "
+          f"control "
+          f"render {c_db:.2f} dB); {len(pngs)} PNGs read back equal; "
+          f"launches {launches}", flush=True)
+    if not p_db >= CLI_PSNR_MIN_DB:
+        raise AssertionError(f"cli render test: kernel vs plain "
+                             f"{p_db:.2f} dB")
+
+    # ---- 3. repose with pruned bones, shared k-NN with fused_agg (K6)
+    launches, rep_s, (rep,) = cli_run(
+        torch, ["--config", "cli_fused.py", "--render_only", "--render_pcd",
+                "--repose_pcd", "--degree_threshold", "30"])
+    add(launches)
+    repdir = os.path.join(run, "render_video_repose_0")
+    frames = sorted(glob.glob(os.path.join(repdir, "img_*.png")))
+    video = [f for f in os.listdir(repdir)
+             if f.startswith("train_video.rgb")]
+    if (len(frames) != 60 or not video or launches["agg"] == 0
+            or launches["featmlp"] or rep["rgbs"].shape != (60, half, half, 3)
+            or not np.isfinite(rep["rgbs"]).all()):
+        raise AssertionError(f"cli repose: {len(frames)} frames, video "
+                             f"{video}, launches {launches}")
+    moved = float(np.abs(rep["depths"][29] - rep["depths"][0]).max())
+    print(f"cli repose: --render_only --render_pcd --repose_pcd "
+          f"--degree_threshold 30 with knn_share 16, knn_cand 8, "
+          f"coarse_stride 32, fused_agg: 60 frames of {half}x{half} in "
+          f"{rep_s:.1f} s ({1e3 * rep_s / 60:.1f} ms a frame, the load and "
+          f"simplify_skeleton included; {nvidia_smi_line()}), video "
+          f"{video}, max depth change {moved:.1f}; launches {launches}",
+          flush=True)
+
+    # ---- 4. the backbone on fine_last.pkl
+    launches, bb_s, (bb,) = cli_run(
+        torch, ["--config", "cli_train.py", "--render_only",
+                "--load_test_val", "--render_test", "--eval_psnr"])
+    add(launches)
+    bb_png = glob.glob(os.path.join(run, "render_test_fine_last",
+                                    "img_*.png"))
+    if (bb["rgbs"].shape != (CLI_TEST_VIEWS, half, half, 3)
+            or not np.isfinite(bb["rgbs"]).all()
+            or len(bb_png) != CLI_TEST_VIEWS):
+        raise AssertionError(f"cli backbone: {bb['rgbs'].shape}, "
+                             f"{len(bb_png)} PNGs")
+    print(f"cli backbone: --render_only --load_test_val --render_test "
+          f"--eval_psnr on fine_last.pkl: {CLI_TEST_VIEWS} views in "
+          f"{bb_s:.1f} s, psnr {[round(x, 2) for x in bb['psnrs']]}; "
+          f"launches {launches}; phase 8 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2118,6 +2452,7 @@ def main() -> int:
                                               stepsize)
         del s1_model
         by_path.update(phase_stage2(torch, s1_data, d, nerf_config))
+    by_path["cli"] = phase_cli(torch)
 
     print(json.dumps({"kernels": report.json_rows(by_path)}))
     print(f"nvidia-smi: {nvidia_smi_line()}")

@@ -77,15 +77,19 @@ def test_port_imports_no_jax(tmp_path, scene):
     two stage-1 training steps on a tiny scene (the second on the
     occupancy path), then the stage-2 half: the thinning library, the
     curriculum sampler, the export of that stage-1 model (skeletonizer
-    included) and two train_pcd steps, in a fresh interpreter: neither jax
-    nor the JAX package (apnerf) ever enters sys.modules (conftest imports
-    jax here)."""
+    included) and two train_pcd steps, then the command line (both stages
+    of a micro config on a scene that ``generate_scene`` writes, without
+    the tensorboard writer: TensorFlow's tensorboard imports jax) and
+    ``load_data`` of each dataset format, in a fresh interpreter: neither
+    jax nor the JAX package (apnerf) ever enters sys.modules (conftest
+    imports jax here)."""
     model, state = port_model({}, scene)
     path = tmp_path / "port.pkl"
     tck.save_temporalpoints(str(path), model, state)
     code = (
         "import importlib, pkgutil, sys\n"
         "import numpy as np, torch\n"
+        "torch.set_num_threads(1)  # the suite's workers share the CPUs\n"
         "import apnerf_torch\n"
         "for m in pkgutil.walk_packages(apnerf_torch.__path__, "
         "'apnerf_torch.'):\n"
@@ -159,6 +163,63 @@ def test_port_imports_no_jax(tmp_path, scene):
         "    (np.asarray(c1.xyz_min), np.asarray(c1.xyz_max)), n_iters=2,\n"
         "    log_every=1, sample_budget=16, device='cpu')\n"
         "assert len(s2['loss']) == 2 and np.isfinite(s2['loss']).all()\n"
+        "import json, os, pickle\n"
+        "from apnerf_torch.config import load_config\n"
+        "from apnerf_torch.data import synthetic\n"
+        "from apnerf_torch.data.load_data import load_data\n"
+        "from apnerf_torch.utils.png import write_png\n"
+        f"root = {str(tmp_path)!r}\n"
+        "os.chdir(root)\n"
+        "arm = synthetic.generate_scene(root + '/arm', n_times=3, n_test=1,\n"
+        "                               H=16, W=16)\n"
+        "base = os.path.join(os.path.dirname(cli.__file__), 'config',\n"
+        "                    'configs')\n"
+        "open('micro.py', 'w').write(\n"
+        "    f'_base_ = {base + \"/nerf/jumpingjacks.py\"!r}\\n'\n"
+        "    'expname = \"e2e\"\\nbasedir = \"./logs/\"\\n'\n"
+        "    f'data = dict(datadir={arm!r}, half_res=False)\\n'\n"
+        "    'model_and_render = dict(num_voxels=8 ** 3, '\n"
+        "    'num_voxels_base=8 ** 3, voxel_dim=4, defor_depth=2, '\n"
+        "    'net_width=16)\\n'\n"
+        "    'train_config = dict(N_iters=2, N_rand=32, pg_scale=[], '\n"
+        "    'use_occupancy=False)\\n'\n"
+        "    'pcd_model_and_render = dict(canonical_pcd_num=100, '\n"
+        "    'bone_length=3.0, pcd_density_threshold=0.0, '\n"
+        "    'skeleton_density_threshold=0.0, sample_budget=16)\\n'\n"
+        "    'pcd_train_config = dict(N_iters=2, N_rand=16, '\n"
+        "    'full_t_iter=4)\\n')\n"
+        "# tensorboard imports TensorFlow where it is installed, and that jax\n"
+        "sys.modules['torch.utils.tensorboard'] = None\n"
+        "cli.main(['--config', 'micro.py', '--i_print', '1', '--i_save',\n"
+        "          '1000'], device='cpu')\n"
+        "assert os.path.isfile('logs/e2e/temporalpoints_last.pkl')\n"
+        "cfg = load_config('micro.py')\n"
+        "assert len(load_data(cfg.data, cfg)['images']) == 3\n"
+        "os.makedirs('spot')\n"
+        "for c in list(range(1, 10)) + list(range(11, 20)):\n"
+        "    v = np.eye(4); v[2, 3] = -3.0\n"
+        "    json.dump({'camera_data': {'intrinsics': {'fx': 8.0,\n"
+        "        'fy': 8.0, 'cx': 4.0, 'cy': 4.0},\n"
+        "        'camera_view_matrix': v.T.tolist()}},\n"
+        "        open(f'spot/cam_{c:03d}.json', 'w'))\n"
+        "    write_png(f'spot/frame_00000_cam_{c:03d}.png',\n"
+        "              np.full((8, 8, 4), 200, np.uint8))\n"
+        "cfg = load_config(base + '/wim/spot.py')\n"
+        "cfg.data.update(datadir='spot', video_len=1, wim_size=8)\n"
+        "assert load_data(cfg.data, cfg)['images'].shape == (18, 8, 8, 3)\n"
+        "img = np.full((3, 8, 8), 9, np.uint8)\n"
+        "msk = np.ones((1, 8, 8), np.uint8)\n"
+        "pickle.dump({'frame_id': np.arange(2),\n"
+        "             'camera_id': np.repeat(np.arange(2), 2),\n"
+        "             'img': [img] * 4, 'mask': [msk] * 4,\n"
+        "             'camera_intrinsic': [np.eye(3) * 8] * 4,\n"
+        "             'camera_rotation': [np.eye(3)] * 4,\n"
+        "             'camera_translation': [np.ones((3, 1))] * 4},\n"
+        "            open('cache_train.pickle', 'wb'))\n"
+        "cfg = load_config(base + '/zju/377.py')\n"
+        "cfg.data.update(datadir='cache_train.pickle', video_len=2,\n"
+        "                zju_size=8)\n"
+        "assert load_data(cfg.data, cfg)['images'].shape == (2, 8, 8, 3)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'apnerf'))\n"
         "assert not bad, bad\n"

@@ -175,14 +175,22 @@ def test_export_point_cloud_vs_jax(monkeypatch, capsys, tmp_path):
 
 
 def test_export_unported_branches_raise(tmp_path):
+    """The branches once left unported now raise only on bad input: a
+    ``smpl_joints.npy`` of another shape than [24, 3] beside the cache,
+    reference tars that are not ``torch.save`` archives."""
     model = ttv.TiNeuVox(ttv.TiNeuVoxConfig(
         xyz_min=(-1.0,) * 3, xyz_max=(1.0,) * 3, num_voxels=8 ** 3,
         num_voxels_base=8 ** 3))
-    with pytest.raises(NotImplementedError):
-        texport.export_point_cloud(model, str(tmp_path), 0.0, 0.5,
-                                   smpl_skeleton_datadir="zju")
-    (tmp_path / "pcds").mkdir()
+    np.save(tmp_path / "smpl_joints.npy", np.zeros((23, 3)))
+    with pytest.raises(ValueError, match="24, 3"):
+        texport.export_point_cloud(
+            model, str(tmp_path), 0.0, 0.5, pcd_density_threshold=0.0,
+            skeleton_density_threshold=0.0, canonical_pcd_num=50,
+            smpl_skeleton_datadir=str(tmp_path / "cache_train.pickle"))
+    (tmp_path / "pcds").mkdir(exist_ok=True)
     for name in ("canonical.tar", "skeleton.tar"):
         (tmp_path / "pcds" / name).write_bytes(b"")
-    with pytest.raises(NotImplementedError):
+    for name in ("canonical.pkl", "skeleton.pkl"):
+        (tmp_path / "pcds" / name).unlink(missing_ok=True)
+    with pytest.raises(EOFError):
         texport.export_point_cloud(model, str(tmp_path), 0.0, 0.5)
