@@ -4,9 +4,13 @@ Every wrapper picks by the device of the tensors it is given: a CPU tensor
 takes the kernel's plain PyTorch version (same module), a CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches per
 kernel, so a run can show that its main path went through the kernels.
+The wrappers count in Python, so a CUDA graph counts through
+``counted_capture`` and ``GraphReplay``: what a capture counted is taken
+back (nothing ran) and added at every replay.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Dict
 
 import torch
@@ -18,6 +22,36 @@ LAUNCHES: Dict[str, int] = {"knn_brute": 0, "knn_count": 0, "knn_radius": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextmanager
+def counted_capture():
+    """Around a graph capture: yields a dict that receives, per kernel, the
+    launches the wrappers counted inside, and takes them back out of
+    ``LAUNCHES``, since a capture launches nothing."""
+    before = dict(LAUNCHES)
+    delta: Dict[str, int] = {}
+    try:
+        yield delta
+    finally:
+        for name in LAUNCHES:
+            delta[name] = LAUNCHES[name] - before[name]
+            LAUNCHES[name] = before[name]
+
+
+class GraphReplay:
+    """A captured graph (``torch.cuda.CUDAGraph`` or anything with
+    ``replay()``) with the launches its capture counted: every ``replay``
+    adds them to ``LAUNCHES``, once per kernel launch in the graph."""
+
+    def __init__(self, graph, launches: Dict[str, int]):
+        self.graph = graph
+        self.launches = {k: n for k, n in launches.items() if n}
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for name, n in self.launches.items():
+            LAUNCHES[name] += n
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

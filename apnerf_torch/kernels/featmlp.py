@@ -73,13 +73,13 @@ def swizzled_chunks(w: torch.Tensor) -> torch.Tensor:
     return out.contiguous().reshape(-1).view(torch.uint8)
 
 
-def feat_k_order(F: int) -> torch.Tensor:
+def feat_k_order(F: int, device=None) -> torch.Tensor:
     """The feature column that sits at each K position of layer 1's
     feature half (``csrc/featmlp_chain.cuh:load_feat``): a lane loads 16
     bytes (8 columns) of a row at once and they fill the A fragments of two
     k16 steps, so position ``32 i + 16 u + 8 v + 2 q + e`` holds column
     ``8 (q + 4 i) + 4 u + 2 v + e``."""
-    p = torch.arange(F)
+    p = torch.arange(F, device=device)
     i, u, v, q, e = p // 32, (p // 16) % 2, (p // 8) % 2, (p // 2) % 4, p % 2
     return 8 * (q + 4 * i) + 4 * u + 2 * v + e
 
@@ -90,7 +90,7 @@ def weight_image(w1: torch.Tensor, wl: torch.Tensor, P_pad: int
     feature rows in ``feat_k_order`` then its PE rows (each
     ``swizzled_chunks``), then every hidden layer."""
     F = w1.shape[1]
-    feat_rows = w1[P_pad:][feat_k_order(F).to(w1.device)]
+    feat_rows = w1[P_pad:][feat_k_order(F, w1.device)]
     parts = [swizzled_chunks(feat_rows), swizzled_chunks(w1[:P_pad])]
     parts += [swizzled_chunks(w) for w in wl]
     return torch.cat(parts).contiguous()

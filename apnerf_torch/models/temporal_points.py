@@ -33,6 +33,7 @@ callers hold ``torch.inference_mode()``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -268,13 +269,15 @@ def get_weights(model: TemporalPoints, state) -> torch.Tensor:
 
 
 def warp(model: TemporalPoints, state, t=None, rot_params=None):
-    """Forward-warp the canonical cloud at time ``t`` or by explicit
-    ``rot_params`` [J, 4]."""
+    """Forward-warp the canonical cloud at time ``t`` (a number, or a
+    one-element tensor, which a CUDA graph reads as its static input) or by
+    explicit ``rot_params`` [J, 4]."""
     cfg = model.cfg
     dev = state["canonical_pcd"].device
     t_embed = None
     if t is not None:
-        tt = torch.as_tensor(t, dtype=F32, device=dev).reshape(1)
+        tt = (t.to(F32).reshape(1) if torch.is_tensor(t)
+              else torch.full((1,), float(t), dtype=F32, device=dev))
         t_embed = encoding.poc_fre(
             tt, encoding.poc_freqs(cfg.timebase_pe, dev)).reshape(-1)
     weights = get_weights(model, state)
@@ -300,6 +303,15 @@ def _compact_per_ray(valid: torch.Tensor, budget: int) -> torch.Tensor:
 OCC_RES = 64
 
 
+@functools.lru_cache(maxsize=64)
+def _cell_floor(radius: float, margin: float, n_dil: int) -> float:
+    """(sqrt(radius) + margin) / n_dil * 1.0001 in fp32, computed on the
+    host's CPU as a number: a frame that a CUDA graph captures makes no
+    host-to-device copy, and after the first frame no host tensor."""
+    D = torch.sqrt(torch.tensor(radius, dtype=F32)) + margin
+    return float(D / n_dil * 1.0001)
+
+
 def build_occupancy(t_hat_pcd, bbox_min, bbox_max, radius: float,
                     occ_res: int = OCC_RES, margin: float = 0.0,
                     n_dil: int = 2):
@@ -307,13 +319,14 @@ def build_occupancy(t_hat_pcd, bbox_min, bbox_max, radius: float,
     cell no smaller than (sqrt(radius) + margin) / n_dil (conservative
     lookups; see the JAX docstring) -> (grid bool [D, D, D], cell)."""
     extent = bbox_max - bbox_min
-    D = torch.sqrt(torch.tensor(radius, dtype=F32)) + margin
-    cell = torch.maximum(extent.amax() / occ_res,
-                         (D / n_dil * 1.0001).to(extent.device))
+    cell = torch.clamp(extent.amax() / occ_res,
+                       min=_cell_floor(radius, margin, n_dil))
     idx = torch.clamp((t_hat_pcd - bbox_min) / cell, 0, occ_res - 1).to(
         torch.int64)
     grid = torch.zeros((occ_res,) * 3, dtype=F32, device=t_hat_pcd.device)
-    grid[idx[:, 0], idx[:, 1], idx[:, 2]] = 1.0
+    # the value a tensor on the device: a number would be copied from the
+    # host, which a CUDA graph's capture refuses
+    grid.index_put_((idx[:, 0], idx[:, 1], idx[:, 2]), grid.new_ones(()))
     grid = grid[None, None]
     for _ in range(n_dil):
         grid = Fn.max_pool3d(grid, 3, stride=1, padding=1)
@@ -906,8 +919,8 @@ def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
         "rgb": scatter(rgb),
         "valid": scatter(sample_ok),
         "budget_audit": torch.stack([
-            act_demand, torch.tensor(M_act, device=dev), pass_demand,
-            torch.tensor(S_pass * share, device=dev)]),
+            act_demand, act_demand.new_full((), M_act), pass_demand,
+            act_demand.new_full((), S_pass * share)]),
         "knn_path": "shared_fused" if fused else "shared",
     }
     for key, val in direct.items():
@@ -976,8 +989,8 @@ def _aggregate_exact(model: TemporalPoints, state, srcs, viewdirs, q, src,
         "rgb": scatter(rgb),
         "valid": scatter(torch.ones_like(pass_ok)),
         "budget_audit": torch.stack([
-            act_demand, torch.tensor(M_act, device=dev), nn_ok.sum(),
-            torch.tensor(n_slots, device=dev)]),
+            act_demand, act_demand.new_full((), M_act), nn_ok.sum(),
+            act_demand.new_full((), n_slots)]),
         "knn_path": "exact",
     }
     if render_pcd_direct:

@@ -25,6 +25,7 @@ from torch import nn
 from .. import resolve_device
 from ..ops import compaction, encoding
 from ..ops.activation import raw2alpha
+from ..ops.consts import device_vector
 from ..ops.grid import mult_dist_interp, resize_trilinear, \
     total_variation_grad
 from ..ops.marching import alpha2weights, composite
@@ -222,8 +223,8 @@ def _act_dtype(cfg: TiNeuVoxConfig) -> torch.dtype:
 
 
 def _bbox(cfg: TiNeuVoxConfig, device):
-    return (torch.tensor(cfg.xyz_min, dtype=F32, device=device),
-            torch.tensor(cfg.xyz_max, dtype=F32, device=device))
+    return (device_vector(cfg.xyz_min, device),
+            device_vector(cfg.xyz_max, device))
 
 
 def apply_deformation(net: MLP, pts_emb, t_feature, act_dt=F32):
@@ -369,8 +370,8 @@ def forward(model: TiNeuVox, rays_o, rays_d, viewdirs, times_sel, near, far,
         tfeat_act = tfeat[ray_of]
     elif active_budget is not None:
         # per-sample compaction
-        samples = sample_pts_on_rays(rays_o, rays_d, cfg.xyz_min,
-                                     cfg.xyz_max, near, far, stepdist, S)
+        samples = sample_pts_on_rays(rays_o, rays_d, lo, hi, near, far,
+                                     stepdist, S)
         valid = samples.valid
         if occ_grid is not None:
             valid = valid & compaction.occupancy_lookup_xyz(
@@ -393,8 +394,8 @@ def forward(model: TiNeuVox, rays_o, rays_d, viewdirs, times_sel, near, far,
         valid = compaction.scatter_back(filled, src, M_full,
                                         fill=False).reshape(N, S)
     else:
-        samples = sample_pts_on_rays(rays_o, rays_d, cfg.xyz_min,
-                                     cfg.xyz_max, near, far, stepdist, S)
+        samples = sample_pts_on_rays(rays_o, rays_d, lo, hi, near, far,
+                                     stepdist, S)
         valid = samples.valid
         if occ_grid is not None:
             valid = valid & compaction.occupancy_lookup_xyz(

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .consts import device_vector
+
 
 def compact_flat(valid_flat: torch.Tensor, budget: int):
     """Indices of the first ``budget`` valid entries of ``valid_flat [M]``:
@@ -45,7 +47,7 @@ def occupancy_lookup_xyz(occ: torch.Tensor, xyz_min: torch.Tensor,
                          xyz_max: torch.Tensor, pts: torch.Tensor):
     """Boolean occupancy at world points ``pts [..., 3]`` (nearest-cell
     semantics of the reference maskcache_lookup)."""
-    dims = torch.tensor(occ.shape, device=pts.device)
+    dims = device_vector(occ.shape, pts.device, torch.int64)
     u = (pts - xyz_min) / (xyz_max - xyz_min)
     idx = torch.floor(u * dims.float()).to(torch.int64)
     ok = ((idx >= 0) & (idx < dims)).all(-1)

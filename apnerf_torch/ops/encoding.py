@@ -5,9 +5,11 @@ import torch
 
 
 def poc_freqs(n: int, device=None) -> torch.Tensor:
-    """Frequency buffer [2^0 .. 2^(n-1)] in float32."""
-    return torch.tensor([2.0 ** i for i in range(n)], dtype=torch.float32,
-                        device=device)
+    """Frequency buffer [2^0 .. 2^(n-1)] in float32, exact: integer shifts
+    made on ``device``, with no host-to-device copy (a CUDA graph may
+    capture it)."""
+    one = torch.ones(n, dtype=torch.int64, device=device)
+    return (one << torch.arange(n, device=device)).float()
 
 
 def poc_fre(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:

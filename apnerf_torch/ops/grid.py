@@ -23,15 +23,15 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.scatter import sorted_window_accumulate
+from .consts import device_vector
 
 
 def grid_interp(grid: torch.Tensor, xyz: torch.Tensor, xyz_min, xyz_max):
     """Trilinear sample of ``grid [X, Y, Z, C]`` at world points ``xyz
     [..., 3]``: ``F.grid_sample(align_corners=True, padding_mode='zeros')``
     with bbox min at index 0 and bbox max at index ``size - 1``."""
-    shape = torch.tensor(grid.shape[:3], dtype=torch.float32,
-                         device=xyz.device)
-    u = (xyz - xyz_min) / (xyz_max - xyz_min) * (shape - 1.0)
+    last = device_vector([n - 1.0 for n in grid.shape[:3]], xyz.device)
+    u = (xyz - xyz_min) / (xyz_max - xyz_min) * last
     return _interp_at_indices(grid, u)
 
 
@@ -163,9 +163,8 @@ def mult_dist_interp(grid: torch.Tensor, xyz: torch.Tensor, xyz_min,
     outs = []
     for s in (1, 2, 4):
         gs = g[::s, ::s, ::s]
-        shape = torch.tensor(gs.shape[:3], dtype=torch.float32,
-                             device=xyz.device)
-        outs.append(_interp_at_indices(gs, unit * (shape - 1.0)))
+        last = device_vector([n - 1.0 for n in gs.shape[:3]], xyz.device)
+        outs.append(_interp_at_indices(gs, unit * last))
     return torch.cat(outs, -1)
 
 

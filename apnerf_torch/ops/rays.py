@@ -11,9 +11,9 @@ import torch
 
 
 def _tensor(x, device) -> torch.Tensor:
-    if not isinstance(x, torch.Tensor):
-        x = np.asarray(x, np.float32)
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
 def get_rays(H: int, W: int, K, c2w, inverse_y=False, flip_x=False,

@@ -5,12 +5,17 @@
 Renders the bench scene (10^4 points, 24 joints, F = 128, K = 8, random
 weights from a seed) at 400 x 400 in 8192-ray chunks through
 ``make_points_renderer`` + ``render_viewpoints`` in the three k-NN modes
-(exact, shared, fused), ``--views`` views each after a warm-up pass, under
-``torch.profiler``: the window's wall time, the device's busy and idle
-share (the union of the kernels' intervals), the share of device time of
-the hand-written kernels (K2 / K3 the k-NN, K4 ``featmlp``, K6 ``agg``),
-the kernels a frame, and the kernels that take the most device time. The
-K2 / K3 wrappers run inside profiler ranges; the Chrome trace says which
+(exact, shared, fused), each two ways: graphed (the renderer's image
+function: two CUDA-graph replays a view) and eager (the image function
+removed: the chunk loop from Python). For each: the capture's ms and the
+peak memory of the first pass (the graphs captured in it), then
+``--views`` views under ``torch.profiler``: the window's wall time, the
+device's busy and idle share (the union of the kernels' intervals), the
+share of device time of the hand-written kernels (K2 / K3 the k-NN, K4
+``featmlp``, K6 ``agg``), the kernels a frame, the host's launch calls a
+frame (``cudaLaunchKernel`` and the like against ``cudaGraphLaunch``), and
+the kernels that take the most device time. In the eager frames the K2 /
+K3 wrappers run inside profiler ranges; the Chrome trace says which
 runtime calls each range made and, by their CUPTI correlation ids, which
 kernels those calls launched. (``prof.events()`` cannot be asked this: it
 ties a runtime call to the kernels of the operation whose External id
@@ -120,6 +125,22 @@ def range_launches(path):
     return rows
 
 
+# the host's calls that launch one kernel, and those that launch a graph
+LAUNCH_CALLS = {"kernel": ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                           "cuLaunchKernel", "cuLaunchKernelEx"),
+                "graph": ("cudaGraphLaunch", "cuGraphLaunch")}
+
+
+def host_launch_calls(prof) -> dict:
+    """The launch calls of a profile by kind (``LAUNCH_CALLS``)."""
+    counts = dict.fromkeys(LAUNCH_CALLS, 0)
+    for e in prof.key_averages():
+        for kind, names in LAUNCH_CALLS.items():
+            if e.key in names:
+                counts[kind] += e.count
+    return counts
+
+
 def cameras(n):
     """``n`` cameras on an arc about the cloud at distance 3, times over
     the whole motion (the views of ``chip_smoke.py``'s phase 6)."""
@@ -145,7 +166,7 @@ def main(argv=None) -> int:
     from .. import cli, kernels
     from ..data.bench_scene import bench_model
     from .render import render_viewpoints
-    from .renderers import make_points_renderer
+    from .renderers import chunk_loop, make_points_renderer
 
     model, state = bench_model()
     base = model.cfg
@@ -157,15 +178,24 @@ def main(argv=None) -> int:
             ("fused", dict(shared, fused_agg=True)))}
     poses, Ks, HW, times = cameras(args.views)
 
-    def render(mode):
+    def profiled(mode, way):
         model.cfg = modes[mode]
         view = make_points_renderer(model, state, 0.5, 6.0, 1.0,
                                     render_weights=False)
-        return render_viewpoints(view, poses, HW, Ks, times, chunk=CHUNK,
-                                 verbose=False)
+        if way == "eager":
+            graphed, view = view, lambda i, t: chunk_loop(graphed(i, t))
 
-    for mode in modes:
-        render(mode)                                      # warm-up, build
+        def render():
+            return render_viewpoints(view, poses, HW, Ks, times,
+                                     chunk=CHUNK, verbose=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        render()                              # warm-up, build, capture
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        calls = getattr(view, "graphs", None)
+        capture = (sum(c.capture_ms for c in calls.calls.values())
+                   if calls is not None else 0.0)
         kernels.reset_launches()
         prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -174,55 +204,70 @@ def main(argv=None) -> int:
         prof.start()
         t0 = time.perf_counter()
         with wrapper_ranges():
-            render(mode)
+            render()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
         prof.stop()
-        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
-        # the ranges show up on the device's side too: they are no kernels
-        ivals = [iv for iv in _kernel_intervals(prof)
-                 if iv[0] not in WRAPPERS.values()]
-        busy = _union_us(ivals)
-        by_group, by_name, count = (defaultdict(float), defaultdict(float),
-                                    defaultdict(int))
-        for name, s, e in ivals:
-            by_group[_group(name)] += e - s
-            by_name[name] += e - s
-            count[name] += 1
-        dev_total = sum(by_group.values())
-        n = args.views
-        print(f"profile_render {mode}: {n} views of {H}x{W}, "
-              f"{torch.cuda.get_device_name(0)}: {window_us / 1e3 / n:.1f} "
-              f"ms/frame under the profiler, device busy "
-              f"{busy / 1e3 / n:.1f} ms/frame, idle share "
-              f"{1 - busy / window_us:.3f}, {len(ivals) // n} kernels a "
-              f"frame, launches {launches}")
-        for g, t in sorted(by_group.items(), key=lambda x: -x[1]):
-            print(f"profile_render {mode}: group {g}: {t / 1e3 / n:.2f} "
-                  f"ms/frame ({t / dev_total:.3f} of device time)")
-        for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
-            print(f"profile_render {mode}: kernel {t / 1e3 / n:7.2f} "
-                  f"ms/frame in {count[name] // n:5d} launches  "
-                  f"{name[:100]}")
-        out_dir = args.trace or tempfile.mkdtemp()
-        os.makedirs(out_dir, exist_ok=True)
-        path = os.path.join(out_dir, f"render_{mode}_trace.json")
-        prof.export_chrome_trace(path)
-        for name, row in range_launches(path).items():
-            own = ", ".join(f"{c / n:.1f} {g}" for g, c in
-                            row["kernels"].items() if g != "other")
-            clash = sum(row["clashes"].values())
-            print(f"profile_render {mode}: {name}: {row['ranges'] / n:.0f} "
-                  f"calls a frame, {row['calls'] / n:.1f} runtime calls a "
-                  f"frame inside, launching {own or 'no own kernel'}"
-                  f" and {row['kernels']['other'] / n:.1f} PyTorch kernels "
-                  f"a frame; {clash / n:.1f} of the calls a frame carry a "
-                  f"correlation id that is also an operation's External id "
-                  f"({', '.join(sorted(row['clashes']))[:120] or 'none'}: "
-                  f"prof.events() ties that operation's kernels to them)")
-        if not args.trace:
-            os.remove(path)
-            os.rmdir(out_dir)
+        return prof, window_us, capture, peak
+
+    n = args.views
+    for mode in modes:
+        for way in ("graphed", "eager"):
+            tag = f"{mode} {way}"
+            prof, window_us, capture, peak = profiled(mode, way)
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            host = host_launch_calls(prof)
+            # the ranges show up on the device's side too: they are no
+            # kernels
+            ivals = [iv for iv in _kernel_intervals(prof)
+                     if iv[0] not in WRAPPERS.values()]
+            busy = _union_us(ivals)
+            by_group, by_name, count = (defaultdict(float),
+                                        defaultdict(float), defaultdict(int))
+            for name, s, e in ivals:
+                by_group[_group(name)] += e - s
+                by_name[name] += e - s
+                count[name] += 1
+            dev_total = sum(by_group.values()) or 1.0
+            print(f"profile_render {tag}: {n} views of {H}x{W}, "
+                  f"{torch.cuda.get_device_name(0)}: "
+                  f"{window_us / 1e3 / n:.1f} ms/frame under the profiler, "
+                  f"device busy {busy / 1e3 / n:.1f} ms/frame, idle share "
+                  f"{1 - busy / window_us:.3f}, {len(ivals) // n} kernels "
+                  f"a frame, host launch calls a frame "
+                  f"{ {k: v / n for k, v in host.items()} }, capture "
+                  f"{capture:.1f} ms, peak memory of the first pass "
+                  f"{peak / 2 ** 30:.3f} GiB, launches {launches}")
+            for g, t in sorted(by_group.items(), key=lambda x: -x[1]):
+                print(f"profile_render {tag}: group {g}: {t / 1e3 / n:.2f} "
+                      f"ms/frame ({t / dev_total:.3f} of device time)")
+            for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
+                print(f"profile_render {tag}: kernel {t / 1e3 / n:7.2f} "
+                      f"ms/frame in {count[name] // n:5d} launches  "
+                      f"{name[:100]}")
+            out_dir = args.trace or tempfile.mkdtemp()
+            os.makedirs(out_dir, exist_ok=True)
+            path = os.path.join(out_dir, f"render_{mode}_{way}_trace.json")
+            prof.export_chrome_trace(path)
+            # a replay runs no wrapper: the ranges are the eager frame's
+            rows = range_launches(path) if way == "eager" else {}
+            for name, row in rows.items():
+                own = ", ".join(f"{c / n:.1f} {g}" for g, c in
+                                row["kernels"].items() if g != "other")
+                clash = sum(row["clashes"].values())
+                ops = ", ".join(sorted(row["clashes"]))[:120] or "none"
+                print(f"profile_render {tag}: {name}: "
+                      f"{row['ranges'] / n:.0f} calls a frame, "
+                      f"{row['calls'] / n:.1f} runtime calls a frame "
+                      f"inside, launching {own or 'no own kernel'} and "
+                      f"{row['kernels']['other'] / n:.1f} PyTorch kernels a "
+                      f"frame; {clash / n:.1f} of the calls a frame carry a "
+                      f"correlation id that is also an operation's External "
+                      f"id ({ops}: prof.events() ties that operation's "
+                      f"kernels to them)")
+            if not args.trace:
+                os.remove(path)
+                os.rmdir(out_dir)
     return 0
 
 

@@ -26,27 +26,80 @@ except ImportError:  # pragma: no cover
     cv2 = None
 
 
+# what an image function gives for the whole view, not per pixel
+# (``renderers.make_points_renderer``): read back with the pixels and handed
+# to ``finish``
+VIEW_KEYS = ("budget_audit", "joints_warped")
+
+
+def _read_back(tensors: Dict[str, torch.Tensor]):
+    """Start copying ``tensors`` to the host -> (host tensors, the event
+    that marks the copies done). CUDA tensors go to pinned memory with
+    copies queued behind the work that makes them; CPU tensors are
+    already there (no event)."""
+    if not any(v.is_cuda for v in tensors.values()):
+        return tensors, None
+    host = {}
+    for k, v in tensors.items():
+        host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host[k].copy_(v, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
 @torch.inference_mode()
 def render_image(render_chunk: Callable, K, c2w, H: int, W: int,
                  chunk: int = 8192, inverse_y=False, flip_x=False,
-                 flip_y=False, extra_keys=(), device=None
-                 ) -> Dict[str, np.ndarray]:
-    """Render one full image by chunking rays through ``render_chunk`` ->
-    numpy arrays [H, W(, C)].
+                 flip_y=False, extra_keys=(), device=None, async_out=False):
+    """Render one full image -> numpy arrays [H, W(, C)].
 
     ``render_chunk(rays_o, rays_d, viewdirs) -> dict`` with at least
-    ``rgb_marched`` [B, 3] and ``depth`` [B]; the rays are made on
-    ``device`` (``None``: the CUDA device; raises without one), where the
-    renderer's model must lie. Every chunk has ``chunk`` rays: the last one
-    is padded by repeating the last pixel and cut back. What ``render_chunk.finish()``
+    ``rgb_marched`` [B, 3] and ``depth`` [B]. Where it has an
+    ``image_fn`` (``renderers.make_image_scan``) the whole image is that
+    one call (on a CUDA device two graph replays), else the rays are made
+    on ``device`` (``None``: the CUDA device; raises without one), where
+    the renderer's model must lie, and go through ``render_chunk`` chunk by
+    chunk. Every chunk has ``chunk`` rays: the last one is padded by
+    repeating the last pixel and cut back. What ``render_chunk.finish()``
     returns, where there is one, is added to the result (``joints_2d``,
-    ``bones``)."""
+    ``bones``).
+
+    ``async_out``: return ``finalize() -> result`` instead of the result.
+    On the image path the outputs' copies to the host are only queued, so
+    that the caller can queue the next view before it reads this one."""
     device = resolve_device(device)
     n = H * W
+    keys = ("rgb_marched", "depth") + tuple(extra_keys)
+    finish = getattr(render_chunk, "finish", None)
+    image_fn = getattr(render_chunk, "image_fn", None)
+    if image_fn is not None:
+        out = image_fn(K, c2w, H, W, chunk, inverse_y, flip_x, flip_y)
+        host, done = _read_back({k: v for k, v in out.items()
+                                 if (k in keys or k in VIEW_KEYS)
+                                 and torch.is_tensor(v)})
+
+        def finalize():
+            if done is not None:
+                done.synchronize()
+            # copied out of the pinned buffers, which go back to the cache
+            arrays = {k: np.array(v.numpy()) for k, v in host.items()}
+            result = {}
+            for k in keys:
+                if k in arrays:
+                    v = arrays[k]
+                    v = v.reshape(-1, *v.shape[2:])[:n]
+                    result[k] = v.reshape(H, W, *v.shape[1:])
+            if finish is not None:
+                result.update(finish({k: arrays[k] for k in VIEW_KEYS
+                                      if k in arrays}))
+            return result
+
+        return finalize if async_out else finalize()
+
     Kd = torch.as_tensor(np.asarray(K, np.float32), device=device)[None]
     cd = torch.as_tensor(np.asarray(c2w, np.float32), device=device)[None]
     cam = torch.zeros(chunk, dtype=torch.int64, device=device)
-    keys = ("rgb_marched", "depth") + tuple(extra_keys)
     outs: Dict[str, list] = {}
     for start in range(0, n, chunk):
         m = min(chunk, n - start)
@@ -63,10 +116,9 @@ def render_image(render_chunk: Callable, K, c2w, H: int, W: int,
     for k, parts in outs.items():
         v = torch.cat(parts, 0).cpu().numpy()
         result[k] = v.reshape(H, W, *v.shape[1:])
-    finish = getattr(render_chunk, "finish", None)
     if finish is not None:
         result.update(finish())
-    return result
+    return (lambda: result) if async_out else result
 
 
 def overlay_skeleton(img, joints_2d, bones):
@@ -103,10 +155,12 @@ def render_viewpoints(render_chunk_for, render_poses, HW, Ks, test_times,
     ``render_chunk_for(i, time) -> chunk_fn`` returns the per-view chunk
     renderer (``renderers.make_points_renderer`` /
     ``make_backbone_renderer``; the model it closes over must lie on
-    ``device``). Returns ``rgbs``, ``depths``, ``weights`` (with the
-    skeleton overlaid where the renderer gave joints) and the per-view
-    metric lists; with ``savedir`` also writes ``img_*.png``,
-    ``weights_*.png`` and, when PSNR was evaluated, ``results.txt``."""
+    ``device``). View i + 1 is queued before view i is read back (its
+    metrics, PNGs and overlay on the host overlap the device's next view).
+    Returns ``rgbs``, ``depths``, ``weights`` (with the skeleton overlaid
+    where the renderer gave joints) and the per-view metric lists; with
+    ``savedir`` also writes ``img_*.png``, ``weights_*.png`` and, when
+    PSNR was evaluated, ``results.txt``."""
     device = resolve_device(device)
     HW = np.copy(np.asarray(HW))
     Ks = np.copy(np.asarray(Ks, np.float32))
@@ -118,12 +172,25 @@ def render_viewpoints(render_chunk_for, render_poses, HW, Ks, test_times,
     joints_all, bones = {}, None
     psnrs, ssims, lp_a, lp_v = [], [], [], []
 
+    def dispatch(i):
+        """Queue view i -> its ``finalize``."""
+        return render_image(
+            render_chunk_for(i, float(test_times[i])), Ks[i],
+            render_poses[i], int(HW[i][0]), int(HW[i][1]), chunk=chunk,
+            inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y,
+            extra_keys=extra_keys, device=device, async_out=True)
+
+    pending = dispatch(0) if len(render_poses) else None
     for i in range(len(render_poses)):
         H, W = int(HW[i][0]), int(HW[i][1])
-        res = render_image(render_chunk_for(i, float(test_times[i])), Ks[i],
-                           render_poses[i], H, W, chunk=chunk,
-                           inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y,
-                           extra_keys=extra_keys, device=device)
+        # view i + 1 is queued before view i is read back, so that the
+        # device renders it meanwhile. Every view of a key replays the same
+        # graphs, whose outputs replay i + 1 overwrites; view i's copies to
+        # the host were queued before it on the same stream, so the
+        # stream's order has them done first.
+        nxt = dispatch(i + 1) if i + 1 < len(render_poses) else None
+        res = pending()
+        pending = nxt
         rgb = res["rgb_marched"]
         rgbs.append(rgb)
         depths.append(res.get("depth", np.zeros((H, W))))

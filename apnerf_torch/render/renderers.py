@@ -1,25 +1,30 @@
-"""Per-model chunk renderers for ``render.render_viewpoints`` (port of
+"""Per-model renderers for ``render.render_viewpoints`` (port of
 ``apnerf/render/renderers.py``).
 
-A renderer is ``for_view(i, t, ...) -> chunk_fn``; ``chunk_fn(rays_o,
-rays_d, viewdirs) -> dict`` renders one chunk of rays, and its
-``finish()``, called after the view's last chunk, returns what belongs to
-the whole view (the 2D joints for the skeleton overlay) and runs the
-budget audit. The JAX package rolls a view's chunks into one ``lax.scan``
-to save dispatches; here the chunks are a plain loop under
-``torch.inference_mode()``.
+A renderer is ``for_view(i, t, ...) -> fn``. ``fn(rays_o, rays_d,
+viewdirs) -> dict`` renders one chunk of rays (the chunk loop of
+``render.render_image``), and its ``finish()`` returns what belongs to the
+whole view (the 2D joints for the skeleton overlay) after the budget
+audit. ``fn.image_fn(K, c2w, H, W, chunk, inverse_y, flip_x, flip_y)``
+renders the whole view at once, as the JAX package's ``lax.scan`` does
+(``make_image_scan``): on a CUDA device a view is two CUDA-graph replays,
+the frame (``prepare_frame``, the JAX ``prep`` jit) and every chunk with
+its rays made on the device; on the CPU the same two bodies run eagerly.
+A capture that fails raises: there is no eager fallback on the card.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import time
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from .. import kernels
+from ..data.rays import pixels_to_rays
 from ..models import temporal_points as tp
 from ..models import tineuvox
 from ..ops.marching import composite
-from ..ops.rays import get_rays_of_a_view
 
 
 def _no_mesh(mesh) -> None:
@@ -28,21 +33,184 @@ def _no_mesh(mesh) -> None:
                                   "ported")
 
 
+def load_static(buf: torch.Tensor, value) -> None:
+    """Copy ``value`` (an array, a tensor) into the static input ``buf`` in
+    stream order: from the host through pinned memory, so that the copy
+    waits neither for the device nor on it (PyTorch's pinned-memory cache
+    keeps the block until the copy has run)."""
+    src = value if torch.is_tensor(value) else torch.from_numpy(
+        np.ascontiguousarray(value, np.float32))
+    src = src.reshape(buf.shape).to(buf.dtype)
+    if buf.is_cuda and not src.is_cuda:
+        src = src.pin_memory()
+    buf.copy_(src, non_blocking=True)
+
+
+class GraphedCall:
+    """``body(*args)`` over ``inputs``, static tensors that the caller
+    refills before each call. On a CUDA device the first call runs ``body``
+    once eagerly on a side stream (the build at first use, the caches that
+    fill then), then captures it as one CUDA graph in the renderer's memory
+    pool; every call replays the graph and returns the graph's outputs,
+    which the next replay overwrites (``args`` must then be what they were
+    at the capture). On the CPU (``pool`` None) every call runs ``body``.
+    ``capture_ms`` is the capture's host time."""
+
+    def __init__(self, body: Callable, inputs: tuple, pool=None):
+        self.body = body
+        self.inputs = inputs
+        self.pool = pool
+        self.replay: Optional[kernels.GraphReplay] = None
+        self.out = None
+        self.capture_ms: Optional[float] = None
+
+    def __call__(self, *args):
+        if self.pool is None:
+            return self.body(*args)
+        if self.replay is None:
+            self._capture(args)
+        self.replay.replay()
+        return self.out
+
+    def _capture(self, args) -> None:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.body(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with kernels.counted_capture() as launches, \
+                torch.cuda.graph(graph, pool=self.pool):
+            self.out = self.body(*args)
+        self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        self.replay = kernels.GraphReplay(graph, launches)
+
+
+class Graphs:
+    """The graphed calls of one renderer, by key, and their memory pool on
+    a CUDA device (freed with the renderer, as the JAX jit cache is); no
+    pool on the CPU. A frame graph is always replayed right before the
+    chunk graph it feeds, which is what lets the two share the pool."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if self.device.type == "cuda" else None)
+        self.calls: Dict[tuple, GraphedCall] = {}
+
+    def call(self, key: tuple, make: Callable) -> GraphedCall:
+        """The call of ``key``; ``make() -> (body, inputs)`` the first
+        time."""
+        if key not in self.calls:
+            self.calls[key] = GraphedCall(*make(), pool=self.pool)
+        return self.calls[key]
+
+
+def make_image_scan(body: Callable, keys, graphs: Graphs):
+    """Whole-image renderer: the rays made on the device, the chunk loop
+    as one CUDA graph (the JAX ``lax.scan``; the JAX ``mesh=`` is not
+    ported).
+
+    ``body(extra, ro, rd, vd) -> dict``; ``extra`` is whatever the chunks
+    read besides the rays (the frame, a time): a graph reads it where it
+    lay at capture, so the caller passes the same object for a key and
+    refills it in place. Returns ``image_fn(extra, K, c2w, H, W, chunk,
+    inverse_y, flip_x, flip_y) -> dict`` of ``keys`` stacked ``[n_chunks,
+    chunk, ...]`` (and, as they stand, whatever values of the last chunk
+    are no tensors). Every chunk has ``chunk`` rays: the last one repeats
+    the last pixel, as the JAX scan pads it. One graph per (extra, H, W,
+    chunk, flags); K [3, 3] and c2w [4, 4] go into its static inputs."""
+    def image_fn(extra, K, c2w, H: int, W: int, chunk: int,
+                 inverse_y=False, flip_x=False, flip_y=False):
+        # on the card a graph belongs to the ``extra`` it read at capture
+        # (the key's id stays unique: the frame graph or the renderer
+        # holds the object); on the CPU ``extra`` is passed at every call
+        owner = id(extra) if graphs.pool is not None else None
+        key = ("scan", owner, H, W, chunk, inverse_y, flip_x, flip_y)
+
+        def make():
+            dev = graphs.device
+            Kd = torch.zeros((1, 3, 3), device=dev)
+            cd = torch.zeros((1, 4, 4), device=dev)
+            n = H * W
+            n_chunks = -(-n // chunk)
+
+            def run(extra):
+                cam = torch.zeros(chunk, dtype=torch.int64, device=dev)
+                ar = torch.arange(chunk, device=dev)
+                parts: Dict[str, list] = {k: [] for k in keys}
+                last = {}
+                for ci in range(n_chunks):
+                    pix = torch.clamp(ci * chunk + ar, max=n - 1)
+                    ro, rd, vd = pixels_to_rays(
+                        Kd, cd, cam, pix, H, W, inverse_y=inverse_y,
+                        flip_x=flip_x, flip_y=flip_y)
+                    last = body(extra, ro, rd, vd)
+                    for k in keys:
+                        if last.get(k) is not None:
+                            parts[k].append(last[k])
+                out = {k: v for k, v in last.items()
+                       if not torch.is_tensor(v)}
+                out.update((k, torch.stack(v)) for k, v in parts.items()
+                           if v)
+                return out
+
+            return run, (Kd, cd)
+
+        call = graphs.call(key, make)
+        Kd, cd = call.inputs
+        load_static(Kd, K)
+        load_static(cd, c2w)
+        return call(extra)
+
+    return image_fn
+
+
+def chunk_loop(fn: Callable) -> Callable:
+    """``fn``'s eager chunk loop: the view's chunk function (and its
+    ``finish``) without its image function, so that ``render_image`` runs
+    the chunks from Python (the JAX package's tests delete ``image_fn``
+    for the same end)."""
+    def plain(ro, rd, vd):
+        return fn(ro, rd, vd)
+    if hasattr(fn, "finish"):
+        plain.finish = fn.finish
+    return plain
+
+
 def make_backbone_renderer(model: tineuvox.TiNeuVox, stepsize, near, far, bg,
                            mesh=None):
-    """Chunk renderer for the TiNeuVox backbone: ``for_view(i, t)``."""
+    """Renderer for the TiNeuVox backbone: ``for_view(i, t)``; its image
+    function reads the time from a static input."""
     _no_mesh(mesh)
     n_steps = model.cfg.max_steps(stepsize)
+    graphs = Graphs(model.feature.device)
+    t_static = torch.zeros(1, device=graphs.device)
+
+    def body(t, ro, rd, vd):
+        times = t.reshape(1, 1).expand(ro.shape[0], 1)
+        res = tineuvox.forward(model, ro, rd, vd, times, near, far,
+                               stepsize, bg, n_steps)
+        return {"rgb_marched": res["rgb_marched"], "depth": res["depth"]}
+
+    scan = make_image_scan(body, ("rgb_marched", "depth"), graphs)
 
     def for_view(i, t):
         @torch.inference_mode()
         def fn(ro, rd, vd):
-            times = torch.full((ro.shape[0], 1), float(t), device=ro.device)
-            res = tineuvox.forward(model, ro, rd, vd, times, near, far,
-                                   stepsize, bg, n_steps)
-            return {"rgb_marched": res["rgb_marched"], "depth": res["depth"]}
+            return body(torch.full((1,), float(t), device=ro.device), ro,
+                        rd, vd)
+
+        @torch.inference_mode()
+        def image_fn(*args):
+            t_static.fill_(float(t))
+            return scan(t_static, *args)
+
+        fn.image_fn = image_fn
         return fn
 
+    for_view.graphs = graphs
     return for_view
 
 
@@ -75,15 +243,18 @@ def make_points_renderer(model: tp.TemporalPoints, state, near, far, bg,
                          render_weights: bool = True,
                          render_pcd_direct: bool = False, poses=None,
                          Ks=None, mesh=None):
-    """Chunk renderer for a stage-2 point model: ``for_view(i, t,
-    rot_params=None)`` warps the cloud once (``prepare_frame``, at time
-    ``t`` or in the pose ``rot_params`` [J, 4]) and returns the chunk
-    function. A chunk gives ``rgb_marched`` (the direct point-cloud render
+    """Renderer for a stage-2 point model: ``for_view(i, t,
+    rot_params=None)`` renders at time ``t`` or in the pose ``rot_params``
+    [J, 4]. A chunk gives ``rgb_marched`` (the direct point-cloud render
     with ``render_pcd_direct``), ``depth``, ``acc`` (accumulated opacity),
     ``weights`` (LBS-weight colours, with ``render_weights``), the chunk's
-    ``budget_audit`` row and ``knn_path``. With ``poses`` and ``Ks`` the
-    view's ``finish()`` adds ``joints_2d`` and ``bones``. The budget audit
-    warns once per renderer, over the worst chunk of its first view."""
+    ``budget_audit`` row and ``knn_path``. The chunk function ``fn`` warps
+    the cloud (``prepare_frame``) at its first call; its ``image_fn``
+    replays the frame graph (the time or the pose a static input) and the
+    chunk graph and adds the frame's ``joints_warped``. With ``poses`` and
+    ``Ks`` the view's ``finish()`` adds ``joints_2d`` and ``bones``. The
+    budget audit warns once per renderer, over the worst chunk of its first
+    view."""
     _no_mesh(mesh)
     cfg = model.cfg
     dev = state["canonical_pcd"].device
@@ -92,60 +263,109 @@ def make_points_renderer(model: tp.TemporalPoints, state, near, far, bg,
     if mask.any():
         cols[mask] = weight_palette(int(mask.sum()))
     cols_dev = torch.as_tensor(cols, device=dev)
+    graphs = Graphs(dev)
 
-    @torch.inference_mode()
+    def body(frame, ro, rd, vd):
+        res = tp.forward(model, state, ro, rd, vd, near=near, far=far, bg=bg,
+                         render_depth=True, render_weights=render_weights,
+                         render_pcd_direct=render_pcd_direct, frame=frame)
+        out = {"rgb_marched": res["rgb_marched"], "depth": res["depth"],
+               "acc": res["weights_per_sample"].sum(-1),
+               "budget_audit": res["budget_audit"],
+               "knn_path": res["knn_path"]}
+        if render_pcd_direct:
+            out["rgb_marched"] = res["rgb_marched_direct"]
+        if render_weights:
+            col = torch.einsum("rbj,jc->rbc", res["lbs_w_per_sample"],
+                               cols_dev)
+            out["weights"] = composite(
+                res["weights_for_render"], col, bg=bg,
+                alphainv_last=res["alphainv_for_render"])
+        return out
+
+    scan = make_image_scan(
+        body, ("rgb_marched", "depth", "acc", "weights", "budget_audit"),
+        graphs)
+
+    def graphed_frame(t, rot_params):
+        """The frame graph of a time, or of a pose of this shape, with its
+        static input refilled."""
+        use_rot = rot_params is not None
+        key = ("frame", tuple(np.shape(rot_params)) if use_rot else None)
+
+        def make():
+            inp = torch.zeros(key[1] or (1,), device=dev)
+            return (lambda: tp.prepare_frame(
+                model, state, t=None if use_rot else inp,
+                rot_params=inp if use_rot else None)), (inp,)
+
+        call = graphs.call(key, make)
+        if use_rot:
+            load_static(call.inputs[0], rot_params)
+        else:
+            call.inputs[0].fill_(float(t or 0.0))
+        return call()
+
     def for_view(i, t, rot_params=None):
         use_rot = rot_params is not None
-        frame = tp.prepare_frame(
-            model, state, t=None if use_rot else float(t or 0.0),
-            rot_params=(torch.as_tensor(rot_params, dtype=torch.float32,
-                                        device=dev) if use_rot else None))
-        audits = []
+        audits, eager = [], {}
+
+        def eager_frame():
+            if "frame" not in eager:
+                eager["frame"] = tp.prepare_frame(
+                    model, state, t=None if use_rot else float(t or 0.0),
+                    rot_params=(torch.as_tensor(
+                        rot_params, dtype=torch.float32, device=dev)
+                        if use_rot else None))
+            return eager["frame"]
 
         @torch.inference_mode()
         def fn(ro, rd, vd):
-            res = tp.forward(model, state, ro, rd, vd, near=near, far=far,
-                             bg=bg, render_depth=True,
-                             render_weights=render_weights,
-                             render_pcd_direct=render_pcd_direct, frame=frame)
-            out = {"rgb_marched": res["rgb_marched"], "depth": res["depth"],
-                   "acc": res["weights_per_sample"].sum(-1),
-                   "budget_audit": res["budget_audit"],
-                   "knn_path": res["knn_path"]}
-            if render_pcd_direct:
-                out["rgb_marched"] = res["rgb_marched_direct"]
-            if render_weights:
-                col = torch.einsum("rbj,jc->rbc", res["lbs_w_per_sample"],
-                                   cols_dev)
-                out["weights"] = composite(
-                    res["weights_for_render"], col, bg=bg,
-                    alphainv_last=res["alphainv_for_render"])
-            audits.append(res["budget_audit"])
+            out = body(eager_frame(), ro, rd, vd)
+            audits.append(out["budget_audit"])
             return out
 
         @torch.inference_mode()
-        def finish() -> Dict[str, np.ndarray]:
+        def image_fn(*args):
+            frame = graphed_frame(t, rot_params)
+            out = dict(scan(frame, *args))
+            out["joints_warped"] = frame["joints_warped"]
+            return out
+
+        @torch.inference_mode()
+        def finish(image: Optional[Dict[str, np.ndarray]] = None
+                   ) -> Dict[str, np.ndarray]:
+            """``image``: the image path's ``budget_audit`` rows and
+            ``joints_warped``, read back; without it, the chunk loop's."""
+            if image is None:
+                rows = (torch.stack(audits).cpu().numpy() if audits
+                        else np.zeros((0, 4)))
+                joints = None
+            else:
+                rows, joints = image["budget_audit"], image["joints_warped"]
             extras = {}
-            if not for_view._audited and audits:
+            if not for_view._audited and len(rows):
                 # the worst chunk of the whole view: the first chunk is
                 # often background with next to no demand
                 for_view._audited = True
-                _warn_audit(torch.stack(audits).amax(0).tolist())
+                _warn_audit(np.max(rows, 0).tolist())
             if poses is not None and Ks is not None and i < len(poses):
+                if joints is None:
+                    joints = eager_frame()["joints_warped"].cpu()
                 j2 = tp.project_points(
-                    frame["joints_warped"],
-                    torch.as_tensor(np.asarray(poses[i], np.float32),
-                                    device=dev),
-                    torch.as_tensor(np.asarray(Ks[i], np.float32),
-                                    device=dev))
-                extras["joints_2d"] = j2.cpu().numpy()
+                    torch.as_tensor(joints, dtype=torch.float32),
+                    torch.as_tensor(np.asarray(poses[i], np.float32)),
+                    torch.as_tensor(np.asarray(Ks[i], np.float32)))
+                extras["joints_2d"] = j2.numpy()
                 extras["bones"] = np.asarray(state["bones"])
             return extras
 
+        fn.image_fn = image_fn
         fn.finish = finish
         return fn
 
     for_view._audited = False
+    for_view.graphs = graphs
     return for_view
 
 
@@ -162,31 +382,20 @@ def render_view(model: tp.TemporalPoints, state, H: int, W: int, K, c2w,
     ``knn_path`` and the per-chunk ``budget_audit`` rows, as tensors on the
     model's device.
 
-    One view of ``make_points_renderer``: ``prepare_frame`` runs once, then
-    every chunk reuses it. The last chunk is padded by repeating pixels and
-    cut back."""
-    dev = state["canonical_pcd"].device
+    One view of ``make_points_renderer`` through its image function (on a
+    CUDA device: captured and replayed once, so a renderer of its own that
+    renders many views pays the capture once)."""
     fn = make_points_renderer(model, state, near, far, bg,
                               render_weights=render_weights)(
         0, t, rot_params=rot_params)
-    ro, rd, vd = (x.reshape(-1, 3) for x in get_rays_of_a_view(
-        H, W, K, c2w, device=dev))
-    n = H * W
+    out = fn.image_fn(K, c2w, H, W, chunk)
     keys = {"rgb": "rgb_marched", "depth": "depth", "acc": "acc"}
     if render_weights:
         keys["weights"] = "weights"
-    parts = {k: [] for k in keys}
-    audits, path = [], None
-    for s in range(0, n, chunk):
-        sel = torch.arange(s, s + chunk, device=dev).clamp(max=n - 1)
-        res = fn(ro[sel], rd[sel], vd[sel])
-        m = min(chunk, n - s)
-        for k, src in keys.items():
-            parts[k].append(res[src][:m])
-        audits.append(res["budget_audit"])
-        path = res["knn_path"]
-    result = {k: torch.cat(v).reshape(H, W, *v[0].shape[1:])
-              for k, v in parts.items()}
-    result["budget_audit"] = torch.stack(audits)
-    result["knn_path"] = path
+    result = {}
+    for k, src in keys.items():
+        v = out[src].reshape(-1, *out[src].shape[2:])[:H * W]
+        result[k] = v.reshape(H, W, *v.shape[1:])
+    result["budget_audit"] = out["budget_audit"]
+    result["knn_path"] = out["knn_path"]
     return result

@@ -62,10 +62,19 @@ and no result line is printed):
 5. render  -- the bench scene of ``bench.py:build_model`` (10^4 points,
    24 joints, F = 128, K = 8, random weights from a seed) is saved and
    loaded as a checkpoint (K1 runs at load) and a 400 x 400 view is
-   rendered in 8192-ray chunks, in exact and in shared k-NN mode. Each mode
-   must launch K1-K4, give a finite image with foreground, and agree with
-   the same render through the plain versions on the foreground pixels
-   (PSNR >= ``PSNR_MIN_DB``, printed beside a control render's).
+   rendered in 8192-ray chunks through ``render_view`` (the image
+   function: a frame graph and a chunk graph, captured in it), in exact
+   and in shared k-NN mode. Each mode must launch K1-K4, give a finite
+   image with foreground, and agree with the same render through the
+   plain versions on the foreground pixels (PSNR >= ``PSNR_MIN_DB``,
+   printed beside a control render's). Then both ways (``graph_vs_eager``):
+   one renderer's frames through its image function and through its
+   chunk loop at two poses from the same graphs, equal within
+   ``GRAPH_MAX_ABS_DIFF``, the launches of a graphed frame equal to an
+   eager frame's, ``FRAMES`` frames timed each way, the capture's ms, the
+   peak memory each way and the host's launch calls of a frame each way
+   (under the profiler; a graphed frame launches its graphs and no more
+   than one kernel).
 6. render views -- the same checkpoint through ``load_temporalpoints``
    (no device given: the card), ``points_render_config`` with
    ``fused_agg`` and ``make_points_renderer(render_weights=False)``, then
@@ -73,10 +82,14 @@ and no result line is printed):
    plain-version renders as gt images: K6 must launch and K4 must not, the
    images must be finite with foreground and agree with the plain-version
    renders on the foreground (PSNR >= ``FUSED_PSNR_MIN_DB``, beside a
-   control render's); frame times fused / shared / exact. At a smaller
-   depth: one ``render_pcd_direct`` view, ``simplify_skeleton`` and a
-   ``repose`` with LBS-weight images, and one ``make_backbone_renderer``
-   view of the stage-1 model of phase 4.
+   control render's). Fused, shared and exact both ways, as in phase 5,
+   at the ``N_VIEWS`` times from one graph, and ``render_viewpoints`` (its
+   readback overlapped with the next view) graphed against eager: equal
+   images, ms a frame each way. At a smaller depth: one
+   ``render_pcd_direct`` view, ``simplify_skeleton`` and a ``repose``
+   with LBS-weight images, and a ``make_backbone_renderer`` view of the
+   stage-1 model of phase 4, its frames both ways at two times (at 100 x
+   100).
 7. stage 2 -- the stage-2 half at the nerf family's width: phase 4's
    model trained ``EXPORT_STEPS`` more steps (a resume from its progress
    checkpoint), ``export_point_cloud`` at the model's world size (the
@@ -1421,12 +1434,130 @@ def phase_train(torch, ckpt_dir):
     return launches, model, data, stepsize
 
 
+# Phases 5 and 6 render every mode two ways: through the renderer's image
+# function (two CUDA-graph replays a view) and through its chunk loop (the
+# image function removed), FRAMES frames each after a warm-up. The graphed
+# images must equal the eager ones bit for bit: both run the same kernels
+# on the same inputs in the same order.
+FRAMES = 20
+GRAPH_MAX_ABS_DIFF = 0.0
+
+
+def host_ms(torch, fn, n=FRAMES):
+    """Host-clock ms of ``n`` calls of ``fn(j)`` (j the call's number;
+    each call reads its result back), after one call."""
+    fn(0)
+    out = []
+    for j in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(j)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def ms_text(times):
+    return (f"{statistics.median(times):.2f} ms (median of {len(times)}, "
+            f"{min(times):.2f}-{max(times):.2f})")
+
+
+def graph_vs_eager(torch, label, make_view, cases, K, c2w, h, w,
+                   extra_keys=()):
+    """One renderer's frames both ways. ``make_view()`` gives a fresh
+    renderer; ``cases`` are (t, rot_params) pairs that its graphs all
+    serve. The first graphed view (the capture in it) is timed and its
+    peak memory read; then every case both ways, whose images must agree
+    within ``GRAPH_MAX_ABS_DIFF``; the launches of a graphed frame must
+    equal an eager frame's; ``FRAMES`` frames each way over the cases, the
+    eager frame's peak memory and, under the profiler, the host's launch
+    calls of a frame each way. Returns the medians, the launch counts."""
+    from apnerf_torch import kernels
+    from apnerf_torch.render.profile_render import host_launch_calls
+    from apnerf_torch.render.render import render_image
+    from apnerf_torch.render.renderers import chunk_loop
+
+    def frame(view, case, graphed=True):
+        t, rot = case
+        fn = view(0, t) if rot is None else view(0, t, rot_params=rot)
+        return render_image(fn if graphed else chunk_loop(fn), K, c2w, h, w,
+                            chunk=CHUNK, extra_keys=extra_keys)
+
+    view = make_view()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    frame(view, cases[0])
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    g_peak = torch.cuda.max_memory_allocated()
+    calls = view.graphs.calls
+    capture_ms = {k[0]: round(c.capture_ms, 1) for k, c in calls.items()}
+    diff, equal = 0.0, True
+    for case in cases:
+        g, e = frame(view, case), frame(view, case, graphed=False)
+        if sorted(g) != sorted(e):
+            raise AssertionError(f"{label}: graphed {sorted(g)}, eager "
+                                 f"{sorted(e)}")
+        for k in e:
+            equal &= bool(np.array_equal(g[k], e[k]))
+            diff = max(diff, float(np.abs(np.asarray(g[k], np.float64)
+                                          - e[k]).max()))
+    counts = {}
+    for way in (True, False):
+        kernels.reset_launches()
+        frame(view, cases[0], graphed=way)
+        torch.cuda.synchronize()
+        counts[way] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    g_ms = host_ms(torch, lambda j: frame(view, cases[j % len(cases)]))
+    e_ms = host_ms(torch, lambda j: frame(view, cases[j % len(cases)],
+                                          graphed=False))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frame(view, cases[0], graphed=False)
+    torch.cuda.synchronize()
+    e_peak = torch.cuda.max_memory_allocated()
+    host = {}
+    for way in (True, False):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            frame(view, cases[0], graphed=way)
+            torch.cuda.synchronize()
+        host[way] = host_launch_calls(prof)
+    print(f"{label} both ways ({nvidia_smi_line()}): a frame graphed "
+          f"{ms_text(g_ms)}, eager {ms_text(e_ms)}; the first graphed view "
+          f"{first_ms:.1f} ms with the captures {capture_ms} ms; peak "
+          f"memory {g_peak / 2 ** 30:.3f} GiB graphed (first view, capture "
+          f"included), {e_peak / 2 ** 30:.3f} GiB eager; host launch calls "
+          f"a frame graphed {host[True]}, eager {host[False]}; launches a "
+          f"frame graphed {counts[True]}, eager {counts[False]}; graphed vs "
+          f"eager over {len(cases)} cases: max abs diff {diff:g} (gate "
+          f"{GRAPH_MAX_ABS_DIFF:g}; bit-equal {equal})", flush=True)
+    if counts[True] != counts[False]:
+        raise AssertionError(f"{label}: launches graphed {counts[True]}, "
+                             f"eager {counts[False]}")
+    if not diff <= GRAPH_MAX_ABS_DIFF:
+        raise AssertionError(f"{label}: graphed vs eager {diff:g}")
+    # a graphed frame launches its graphs, and a kernel at most: the fill
+    # of a static time
+    if host[True]["graph"] != len(calls) or host[True]["kernel"] > 1:
+        raise AssertionError(f"{label}: a graphed frame made the launch "
+                             f"calls {host[True]}")
+    return dict(graphed_ms=statistics.median(g_ms),
+                eager_ms=statistics.median(e_ms), launches=counts[True])
+
+
 def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
-    """Phase 4: save/load the bench model, render exact and shared."""
+    """Phase 5: save/load the bench model, render exact and shared, each
+    graphed and eager."""
     from apnerf_torch import kernels
     from apnerf_torch.data.bench_scene import bench_config, bench_heads
     from apnerf_torch.models import temporal_points as tp
-    from apnerf_torch.render.renderers import render_view
+    from apnerf_torch.render.render import render_image
+    from apnerf_torch.render.renderers import (chunk_loop,
+                                               make_points_renderer,
+                                               render_view)
     from apnerf_torch.utils.checkpoint import (load_temporalpoints,
                                                save_temporalpoints)
     P, J, F = pcd.shape[0], joints.shape[0], feat.shape[1]
@@ -1436,11 +1567,14 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
                            np.full(P, 0.5, np.float32),
                            np.full((P, 3), 0.5, np.float32),
                            bench_heads(cfg0, gen), generator=gen)
-    # the bench's explicit pose (bench.py measure_mode)
+    # the bench's explicit pose (bench.py measure_mode), and a second pose
+    # that the same graphs render
     rng = np.random.default_rng(1)
     rot = torch.tensor(np.concatenate(
         [rng.normal(size=(J, 3)), 0.2 * np.ones((J, 1))], -1).astype(
             np.float32), device=DEVICE)
+    rot2 = rot.clone()
+    rot2[:, 3] = -0.3
     Kmat = [[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1]]
     c2w = np.eye(4, dtype=np.float32)
     c2w[2, 3] = 3.0
@@ -1465,6 +1599,7 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
                           chunk=CHUNK)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
+        # K1 at the load; the image function's warm-up and its replay
         launches[mode] = dict(kernels.LAUNCHES)
         if out["knn_path"] != mode:
             raise AssertionError(f"{mode} render ran the {out['knn_path']} "
@@ -1481,18 +1616,11 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
             raise AssertionError(f"{mode}: background-only image "
                                  f"(foreground {fg:.4f})")
         audit = out["budget_audit"].max(0).values.tolist()
-
-        def frame():
-            return render_view(m, state, H, W, Kmat, c2w, rot_params=rot,
-                               chunk=CHUNK)
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            frame()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        dt = statistics.median(times)
+        both = graph_vs_eager(
+            torch, f"render {mode}",
+            lambda: make_points_renderer(m, state, 0.5, 6.0, 1.0),
+            [(None, rot), (None, rot2)], Kmat, c2w, H, W,
+            extra_keys=("acc", "weights"))
         loads = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -1500,29 +1628,36 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
             load_temporalpoints(path, device=DEVICE)
             torch.cuda.synchronize()
             loads.append(1e3 * (time.perf_counter() - t0))
+
+        def eager():
+            fn = make_points_renderer(m, state, 0.5, 6.0, 1.0)(
+                0, None, rot_params=rot)
+            return render_image(chunk_loop(fn), Kmat, c2w, H, W, chunk=CHUNK,
+                                extra_keys=("acc",))
         with plain_kernels():
-            ref = frame()
+            ref = eager()
         with plain_kernels(featmlp_fp32_layers):
-            ctl = frame()
+            ctl = eager()
         # over the foreground only: the background is bg whatever K4 gives
-        fg_mask = ((out["acc"] > 1e-3) | (ref["acc"] > 1e-3)).cpu().numpy()
-        ref_rgb = ref["rgb"].cpu().numpy()
+        fg_mask = (out["acc"] > 1e-3).cpu().numpy() | (ref["acc"] > 1e-3)
+        ref_rgb = ref["rgb_marched"]
         p_db = psnr(rgb.cpu().numpy(), ref_rgb, fg_mask)
-        c_db = psnr(ctl["rgb"].cpu().numpy(), ref_rgb, fg_mask)
+        c_db = psnr(ctl["rgb_marched"], ref_rgb, fg_mask)
         if not p_db >= PSNR_MIN_DB:
             raise AssertionError(f"{mode}: kernel vs plain {p_db:.2f} dB")
         images[mode] = rgb.cpu().numpy()
-        print(f"render {mode}: {H}x{W} in {CHUNK}-ray chunks, "
-              f"{dt * 1e3:.1f} ms/frame (median of "
-              f"{[round(t * 1e3, 1) for t in times]}), "
-              f"{H * W / dt:.0f} rays/s, "
+        dt = both["graphed_ms"] / 1e3
+        print(f"render {mode}: {H}x{W} in {CHUNK}-ray chunks, graphed "
+              f"{both['graphed_ms']:.1f} ms/frame, {H * W / dt:.0f} rays/s "
+              f"(eager {both['eager_ms']:.1f} ms/frame), "
               f"first load+frame {first_s:.1f} s, load_temporalpoints "
               f"{statistics.median(loads):.1f} ms (median of "
               f"{[round(t, 1) for t in loads]}; K1 runs once in it), "
               f"foreground {fg:.3f}, "
               f"kernel vs plain {p_db:.2f} dB on the foreground (gate "
               f"{PSNR_MIN_DB:g}; control render {c_db:.2f} dB), "
-              f"launches {launches[mode]}, "
+              f"launches of the load and the first view {launches[mode]}, "
+              f"of a frame {both['launches']}, "
               f"worst-chunk budget audit {audit}", flush=True)
     print("render shared vs exact: "
           f"{psnr(images['shared'], images['exact']):.2f} dB (bench.py gates "
@@ -1537,7 +1672,8 @@ def phase_views(torch, ckpt_dir, stage1_model, stage1_data, stepsize):
     from apnerf_torch import cli, kernels
     from apnerf_torch.models import temporal_points as tp
     from apnerf_torch.render.render import render_viewpoints
-    from apnerf_torch.render.renderers import (make_backbone_renderer,
+    from apnerf_torch.render.renderers import (chunk_loop,
+                                               make_backbone_renderer,
                                                make_points_renderer)
     from apnerf_torch.utils.checkpoint import load_temporalpoints
     near, far, bg = 0.5, 6.0, 1.0
@@ -1566,17 +1702,22 @@ def phase_views(torch, ckpt_dir, stage1_model, stage1_data, stepsize):
     times = np.linspace(0.0, 1.0, n).astype(np.float32)
     data = dict(poses=poses, Ks=Ks, HW=HW)
 
-    def render(mode, **kw):
+    def renderer(mode):
         model.cfg = modes[mode]
-        view = make_points_renderer(model, state, near, far, bg,
+        return make_points_renderer(model, state, near, far, bg,
                                     render_weights=False)
+
+    def render(mode, graphed=True, view=None, **kw):
+        view = view or renderer(mode)
+        if not graphed:
+            view = (lambda v: lambda i, t: chunk_loop(v(i, t)))(view)
         return render_viewpoints(view, poses, HW, Ks, times, chunk=CHUNK,
                                  verbose=False, **kw)
 
     with plain_kernels():
-        ref = render("fused")
+        ref = render("fused", graphed=False)
     with plain_kernels(agg=agg_fp32_layers):
-        ctl = render("fused")
+        ctl = render("fused", graphed=False)
     kernels.reset_launches()
     out = render("fused", gt_imgs=ref["rgbs"], eval_psnr=True, eval_ssim=True,
                  eval_lpips_alex=True)
@@ -1600,15 +1741,29 @@ def phase_views(torch, ckpt_dir, stage1_model, stage1_data, stepsize):
     if not p_db >= FUSED_PSNR_MIN_DB:
         raise AssertionError(f"render views: kernel vs plain {p_db:.2f} dB")
 
+    # each mode both ways: frames one at a time (graph_vs_eager, the three
+    # times from one graph), then render_viewpoints' overlapped passes,
+    # whose images must agree as the frames'
     frame_ms, images = {}, {"fused": rgbs}
     for mode in modes:
-        render(mode)                                      # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = render(mode)
-        torch.cuda.synchronize()
-        frame_ms[mode] = 1e3 * (time.perf_counter() - t0) / n
-        images[mode] = res["rgbs"]
+        graph_vs_eager(torch, f"render views {mode}",
+                       lambda: renderer(mode), [(t, None) for t in times],
+                       Ks[0], poses[0], H, W)
+        view = renderer(mode)
+        res = {way: render(mode, way, view) for way in (True, False)}
+        diff = max(float(np.abs(res[True][k] - res[False][k]).max())
+                   for k in ("rgbs", "depths"))
+        if not diff <= GRAPH_MAX_ABS_DIFF:
+            raise AssertionError(f"render views {mode}: render_viewpoints "
+                                 f"graphed vs eager {diff:g}")
+        for way in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render(mode, way, view)
+            torch.cuda.synchronize()
+            frame_ms[f"{mode} {'graphed' if way else 'eager'}"] = \
+                1e3 * (time.perf_counter() - t0) / n
+        images[mode] = res[True]["rgbs"]
     from apnerf_torch.render.metrics import lpips_metric_name
     print(f"render views: {n} views of {H}x{W} in {CHUNK}-ray chunks through "
           f"render_viewpoints, fused_agg: launches {launches}, foreground "
@@ -1620,8 +1775,9 @@ def phase_views(torch, ckpt_dir, stage1_model, stage1_data, stepsize):
           f" {[float(f'{x:.3g}') for x in out['lpips_alex']]}; fused vs "
           f"shared {psnr(images['fused'], images['shared']):.2f} dB, shared "
           f"vs exact {psnr(images['shared'], images['exact']):.2f} dB; "
-          f"ms/frame (readback included, mean of {n} views after a warm-up "
-          f"pass; {nvidia_smi_line()}): "
+          f"ms/frame through render_viewpoints (readback included, mean "
+          f"of {n} views after a pass that captured the graphs; "
+          f"{nvidia_smi_line()}): "
           f"{ {k: round(v, 1) for k, v in frame_ms.items()} }", flush=True)
 
     # ---- at a smaller depth: the direct point-cloud render
@@ -1659,6 +1815,7 @@ def phase_views(torch, ckpt_dir, stage1_model, stage1_data, stepsize):
         model, state, train_times, deg_threshold=thr,
         five_percent_heuristic=True)
     kernels.reset_launches()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     rep = cli.repose(model, new_state, data, near, far, bg, seed=0,
                      render_factor=4, chunk=CHUNK, verbose=False)
@@ -1682,8 +1839,19 @@ def phase_views(torch, ckpt_dir, stage1_model, stage1_data, stepsize):
           f"{moved:.1f} steps, launches {dict(kernels.LAUNCHES)}",
           flush=True)
 
-    # ---- one view of the stage-1 backbone
+    # ---- the stage-1 backbone: its frames both ways at two times, at a
+    # quarter of the view's side (a 400 x 400 frame takes ~3.3 s), then
+    # one view at full size
     d = stage1_data
+    bh, bw = int(d["HW"][0][0]) // 4, int(d["HW"][0][1]) // 4
+    bK = np.array(d["Ks"][0], np.float32)
+    bK[:2, :3] /= 4
+    graph_vs_eager(torch, f"render views backbone {bh}x{bw}",
+                   lambda: make_backbone_renderer(
+                       stage1_model, stepsize, d["near"], d["far"], 1.0),
+                   [(float(d["times"][0]), None),
+                    (float(d["times"][-1]), None)],
+                   bK, d["poses"][0], bh, bw)
     back = render_viewpoints(
         make_backbone_renderer(stage1_model, stepsize, d["near"], d["far"],
                                1.0),

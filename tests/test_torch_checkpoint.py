@@ -73,7 +73,8 @@ def test_port_writer_round_trips(tmp_path, scene):
 def test_port_imports_no_jax(tmp_path, scene):
     """Every apnerf_torch module, then init_params, load_temporalpoints,
     the render entry points (simplify_skeleton, make_points_renderer with
-    fused_agg through render_viewpoints with every metric, repose, LPIPS),
+    fused_agg through render_viewpoints with every metric and its image
+    function, repose, LPIPS),
     two stage-1 training steps on a tiny scene (the second on the
     occupancy path), then the stage-2 half: the thinning library, the
     curriculum sampler, the export of that stage-1 model (skeletonizer
@@ -129,6 +130,10 @@ def test_port_imports_no_jax(tmp_path, scene):
         "assert out['rgbs'].shape == (1, 12, 16, 3) and out['psnrs']\n"
         "assert view(0, 0.5)(*torch.rand(3, 192, 3))['knn_path'] \\\n"
         "    == 'shared_fused'\n"
+        "from apnerf_torch.render.renderers import make_image_scan\n"
+        "img = view(0, 0.5).image_fn(data['Ks'][0], data['poses'][0], 12,\n"
+        "                            16, 192)\n"
+        "assert img['rgb_marched'].shape == (1, 192, 3)\n"
         "out = cli.repose(model, state, data, 0.5, 6.0, 1.0,\n"
         "                 render_factor=4, chunk=12, verbose=False,\n"
         "                 device='cpu')\n"
