@@ -14,97 +14,23 @@ A capture that fails raises: there is no eager fallback on the card.
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from .. import kernels
 from ..data.rays import pixels_to_rays
 from ..models import temporal_points as tp
 from ..models import tineuvox
 from ..ops.marching import composite
+# the graph machinery the render shares with training, importable here
+from ..utils.graphs import GraphedCall, Graphs, load_static  # noqa: F401
 
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("multi-device rendering (mesh) is not "
                                   "ported")
-
-
-def load_static(buf: torch.Tensor, value) -> None:
-    """Copy ``value`` (an array, a tensor) into the static input ``buf`` in
-    stream order: from the host through pinned memory, so that the copy
-    waits neither for the device nor on it (PyTorch's pinned-memory cache
-    keeps the block until the copy has run)."""
-    src = value if torch.is_tensor(value) else torch.from_numpy(
-        np.ascontiguousarray(value, np.float32))
-    src = src.reshape(buf.shape).to(buf.dtype)
-    if buf.is_cuda and not src.is_cuda:
-        src = src.pin_memory()
-    buf.copy_(src, non_blocking=True)
-
-
-class GraphedCall:
-    """``body(*args)`` over ``inputs``, static tensors that the caller
-    refills before each call. On a CUDA device the first call runs ``body``
-    once eagerly on a side stream (the build at first use, the caches that
-    fill then), then captures it as one CUDA graph in the renderer's memory
-    pool; every call replays the graph and returns the graph's outputs,
-    which the next replay overwrites (``args`` must then be what they were
-    at the capture). On the CPU (``pool`` None) every call runs ``body``.
-    ``capture_ms`` is the capture's host time."""
-
-    def __init__(self, body: Callable, inputs: tuple, pool=None):
-        self.body = body
-        self.inputs = inputs
-        self.pool = pool
-        self.replay: Optional[kernels.GraphReplay] = None
-        self.out = None
-        self.capture_ms: Optional[float] = None
-
-    def __call__(self, *args):
-        if self.pool is None:
-            return self.body(*args)
-        if self.replay is None:
-            self._capture(args)
-        self.replay.replay()
-        return self.out
-
-    def _capture(self, args) -> None:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.body(*args)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with kernels.counted_capture() as launches, \
-                torch.cuda.graph(graph, pool=self.pool):
-            self.out = self.body(*args)
-        self.capture_ms = 1e3 * (time.perf_counter() - t0)
-        self.replay = kernels.GraphReplay(graph, launches)
-
-
-class Graphs:
-    """The graphed calls of one renderer, by key, and their memory pool on
-    a CUDA device (freed with the renderer, as the JAX jit cache is); no
-    pool on the CPU. A frame graph is always replayed right before the
-    chunk graph it feeds, which is what lets the two share the pool."""
-
-    def __init__(self, device: torch.device):
-        self.device = torch.device(device)
-        self.pool = (torch.cuda.graph_pool_handle()
-                     if self.device.type == "cuda" else None)
-        self.calls: Dict[tuple, GraphedCall] = {}
-
-    def call(self, key: tuple, make: Callable) -> GraphedCall:
-        """The call of ``key``; ``make() -> (body, inputs)`` the first
-        time."""
-        if key not in self.calls:
-            self.calls[key] = GraphedCall(*make(), pool=self.pool)
-        return self.calls[key]
 
 
 def make_image_scan(body: Callable, keys, graphs: Graphs):

@@ -10,8 +10,14 @@
 * ``skip_zero_grad_fields``: entries whose gradient is exactly 0 keep
   their parameter and both moments (the sparse voxel-grid update).
 
-Moments are fp32 tensors keyed by ``state_dict`` name. Parameters are
-updated in place; the update runs under ``torch.no_grad``.
+Moments are fp32 tensors keyed by ``state_dict`` name. A step is two
+parts, so that a CUDA graph can replay the second: ``advance()`` counts
+on the host and loads each training key's step size, computed in numpy
+fp32, into the static device vector ``step_sizes``; ``apply(grads)``
+updates the parameters and both moments in place (under
+``torch.no_grad``), reading its step sizes from that vector.
+``update(grads)`` is both. A checkpoint reads and restores those same
+moment tensors (``state_to_jax`` / ``load_state_from_jax``).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from ..utils.checkpoint import params_from_jax, params_to_jax
+from ..utils.graphs import load_static
 
 
 class MaskedAdam:
@@ -37,6 +44,12 @@ class MaskedAdam:
                    for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p, dtype=torch.float32)
                    for n, p in self.params.items()}
+        # the keys that train, and each one's slot in step_sizes
+        self.slot = {k: i for i, k in enumerate(
+            k for k in keys if self.lrs[k] != 0.0)}
+        dev = next(iter(self.params.values())).device
+        self.step_sizes = torch.zeros(len(self.slot), dtype=torch.float32,
+                                      device=dev)
 
     def _step_size(self, lr: float) -> np.float32:
         f32 = np.float32
@@ -46,18 +59,23 @@ class MaskedAdam:
             f32(1.0) - f32(self.b1) ** t)
         return f32(lr) * decay * corr
 
-    @torch.no_grad()
-    def update(self, grads: Dict[str, Optional[torch.Tensor]]) -> None:
-        """One step; ``grads`` maps each parameter name to its gradient
-        (None counts as zero)."""
+    def advance(self) -> None:
+        """Count one step and load the step sizes of that count into
+        ``step_sizes``, in stream order."""
         self.count += 1
+        load_static(self.step_sizes, np.array(
+            [self._step_size(self.lrs[k]) for k in self.slot], np.float32))
+
+    @torch.no_grad()
+    def apply(self, grads: Dict[str, Optional[torch.Tensor]]) -> None:
+        """The update of the step ``advance`` counted; ``grads`` maps each
+        parameter name to its gradient (None counts as zero)."""
         b1, b2, eps = self.b1, self.b2, self.eps
         for name, p in self.params.items():
             key = name.split(".")[0]
-            lr = self.lrs[key]
-            if lr == 0.0:
+            if key not in self.slot:
                 continue
-            step_size = float(self._step_size(lr))
+            step_size = self.step_sizes[self.slot[key]]
             g = grads.get(name)
             g = torch.zeros_like(p, dtype=torch.float32) if g is None \
                 else g.float()
@@ -74,7 +92,13 @@ class MaskedAdam:
             else:
                 p_new = p32 - delta
             p.copy_(p_new)
-            self.mu[name], self.nu[name] = m, v
+            m_old.copy_(m)
+            v_old.copy_(v)
+
+    def update(self, grads: Dict[str, Optional[torch.Tensor]]) -> None:
+        """One step: ``advance`` then ``apply``."""
+        self.advance()
+        self.apply(grads)
 
     def state_to_jax(self) -> Dict:
         """``{"count", "mu", "nu"}`` as the JAX package's
@@ -83,10 +107,10 @@ class MaskedAdam:
                 "mu": params_to_jax(self.mu), "nu": params_to_jax(self.nu)}
 
     def load_state_from_jax(self, saved: Dict) -> None:
-        """Inverse of ``state_to_jax``; moments land on the parameters'
-        devices."""
+        """Inverse of ``state_to_jax``: the moments are copied into this
+        optimizer's own tensors, which a captured step reads."""
         self.count = int(np.asarray(saved["count"]))
         for attr in ("mu", "nu"):
             sd = params_from_jax(saved[attr])
-            setattr(self, attr, {n: sd[n].to(p.device)
-                                 for n, p in self.params.items()})
+            for n, m in getattr(self, attr).items():
+                m.copy_(sd[n])

@@ -15,20 +15,24 @@ window's wall time, the device's busy and idle share (the union of the
 kernels' intervals), and device time by group (K2, K3, K4, GEMMs, the
 rest) and by kernel. Every step ends in a host sync (the loss is logged),
 as in ``chip_smoke.py``'s step times. ``--trace`` also writes the Chrome
-trace there.
+trace there. Both ways, as ``profile_stage1`` does: graphed (``train_pcd``
+as it runs, each step a CUDA-graph replay after the first) and eager
+(``make_train_step`` behind the same call, ``eager_steps``), each with the
+kernels a step, the host's launch calls a step, the capture's ms and the
+peak memory of the run.
 """
 from __future__ import annotations
 
 import argparse
-import os
 import tempfile
-import time
-from collections import defaultdict
+from contextlib import contextmanager
+from unittest import mock
 
 import numpy as np
 import torch
 
-from .profile_stage1 import GEMM_MARKS, _kernel_intervals, _union_us
+from .profile_stage1 import (GEMM_MARKS, EagerStep, profile_window,
+                             recorded_steps, report)
 
 # substrings of the hand-written kernels' names (csrc/*.cu); K1 shares K3's
 # scan but runs once, in build_model, before the profiled window
@@ -43,6 +47,29 @@ def _group(name: str) -> str:
     if any(m in name for m in GEMM_MARKS):
         return "GEMM (MLPs)"
     return "other"
+
+
+@contextmanager
+def eager_steps(made=None):
+    """Within: ``train_pcd`` steps through ``make_train_step`` (eagerly)
+    instead of its graph; ``made``, a list, receives the step object."""
+    from . import stage2
+
+    def eager(model, state, cfg_train, optimizer, Ks, poses, H, W, near,
+              far, bg, n_chamfer_views, n_rand, inverse_y=False,
+              flip_x=False, flip_y=False):
+        step = stage2.make_train_step(
+            model, state, cfg_train, optimizer, Ks, poses, H, W, near, far,
+            bg, n_chamfer_views, inverse_y=inverse_y, flip_x=flip_x,
+            flip_y=flip_y)
+        inputs = stage2.step_inputs(n_rand, n_chamfer_views, Ks.device)
+        out = EagerStep(inputs, lambda: (step(inputs), None))
+        if made is not None:
+            made.append(out)
+        return out
+
+    with mock.patch.object(stage2, "make_graphed_step", eager):
+        yield
 
 
 def main(argv=None) -> int:
@@ -82,55 +109,30 @@ def main(argv=None) -> int:
                            if k.split(".")[0] in HEADS})
     bbox = (np.asarray(s1cfg.xyz_min), np.asarray(s1cfg.xyz_max))
     del s1
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
-    wall = {}
+    from . import stage2
+    for way in ("graphed", "eager"):
+        made, out = [], {}
+        steps_of = (recorded_steps(stage2, made) if way == "graphed"
+                    else eager_steps(made))
 
-    def callback(step, model, mcfg, state, stats):
-        if step == args.warmup:
-            torch.cuda.synchronize()
-            prof.start()
-            wall["t0"] = time.perf_counter()
-        elif step == n:
-            torch.cuda.synchronize()
-            wall["t1"] = time.perf_counter()
-            prof.stop()
+        def train(callback):
+            out["mcfg"] = train_pcd(
+                cfg, data, art["canonical"], art["skeleton"], heads, s1cfg,
+                bbox, seed=0, n_iters=n, log_every=1, callback=callback,
+                max_steps=192, device="cuda")[1]
 
-    torch.cuda.reset_peak_memory_stats()
-    _, mcfg, _, _ = train_pcd(cfg, data, art["canonical"], art["skeleton"],
-                              heads, s1cfg, bbox, seed=0, n_iters=n,
-                              log_every=1, callback=callback, max_steps=192,
-                              device="cuda")
-    window_us = (wall["t1"] - wall["t0"]) * 1e6
-    kernels = _kernel_intervals(prof)
-    busy = _union_us(kernels)
-    by_group, by_name = defaultdict(float), defaultdict(float)
-    for name, s, e in kernels:
-        by_group[_group(name)] += e - s
-        by_name[name] += e - s
-    dev_total = sum(by_group.values())
-    print(f"profile_stage2: {args.steps} steps after {args.warmup}, "
-          f"{len(art['canonical']['pcd'])} points, {mcfg.n_joints} joints, "
-          f"sample_budget {mcfg.sample_budget}, "
-          f"{torch.cuda.get_device_name(0)}: window "
-          f"{window_us / 1e3:.1f} ms ({window_us / 1e3 / args.steps:.1f} "
-          f"ms/step), device busy {busy / 1e3:.1f} ms "
-          f"({busy / 1e3 / args.steps:.1f} ms/step), idle share "
-          f"{1 - busy / window_us:.3f}, {len(kernels) / args.steps:.0f} "
-          f"kernels a step, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    for g, t in sorted(by_group.items(), key=lambda x: -x[1]):
-        print(f"profile_stage2: group {g}: {t / 1e3 / args.steps:.3f} ms a "
-              f"step ({t / dev_total:.3f} of device time, "
-              f"{t / window_us:.3f} of the step)")
-    for name, t in sorted(by_name.items(), key=lambda x: -x[1])[:20]:
-        print(f"profile_stage2: kernel {t / 1e3 / args.steps:8.3f} ms a step"
-              f"  {name[:110]}")
-    if args.trace:
-        os.makedirs(args.trace, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.trace,
-                                              "stage2_trace.json"))
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with steps_of:
+            prof, window_us = profile_window(train, args.warmup, args.steps)
+        mcfg = out["mcfg"]
+        print(f"profile_stage2 {way}: {len(art['canonical']['pcd'])} "
+              f"points, {mcfg.n_joints} joints, sample_budget "
+              f"{mcfg.sample_budget}")
+        report(f"profile_stage2 {way}", prof, window_us, args.steps, _group,
+               made, torch.cuda.max_memory_allocated(), args.trace)
+        del made
     return 0
 
 

@@ -13,6 +13,18 @@ mid-stage checkpoints with resume.
 and ``.get``. Ray microbatching (``ray_microbatch`` > 1, or the JAX auto
 rule above 4096 rays) and the multi-device ``mesh`` are not ported and
 raise ``NotImplementedError``.
+
+On a CUDA device each training step is one replay of a captured CUDA
+graph (``make_graphed_step``), one graph per *segment* as the JAX package
+jits one program per grid resolution: a ``pg_scale`` rebuild, the
+occupancy switch and ``step_to_half`` (the feature grid cast to bf16)
+each start a new segment, whose first step runs eagerly and is captured.
+The batch, the occupancy grid (refreshed every ``occupancy_update_every``
+steps by a copy into the segment's static grid) and the Adam step sizes
+are static inputs. The TV switches ``tv_on`` / ``tv_dense`` are host flags
+that pick a branch of the step, so a segment keeps one graph for each
+setting it meets. On the CPU the same body runs eagerly;
+``make_train_step`` is the eager step, the yardstick.
 """
 from __future__ import annotations
 
@@ -29,6 +41,7 @@ from ..models import tineuvox
 from ..ops import compaction, marching
 from ..ops.rays import get_rays_of_a_view
 from ..utils import checkpoint as ckpt
+from ..utils.graphs import GraphedStep
 from .masked_adam import MaskedAdam
 
 
@@ -109,20 +122,22 @@ def make_loss_fn(model: tineuvox.TiNeuVox, cfg_train, Ks, poses, H, W,
     return loss_fn
 
 
-def make_train_step(model: tineuvox.TiNeuVox, cfg_train,
-                    optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
-                    inverse_y=False, flip_x=False, flip_y=False,
-                    active_budget=None):
-    """``step(batch, tv_on, occ=None, tv_dense=True) -> (loss, mse)``:
-    loss, backward, the TV gradient added to the feature gradient after
-    the backward (the reference's ``feature_total_variation_add_grad``),
-    then one masked-Adam update of ``model`` in place."""
+def make_step_body(model: tineuvox.TiNeuVox, cfg_train,
+                   optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
+                   inverse_y=False, flip_x=False, flip_y=False,
+                   active_budget=None):
+    """``body(batch, occ, tv_on, tv_dense) -> (loss, mse, grads)``: loss,
+    backward, the TV gradient added to the feature gradient after the
+    backward (the reference's ``feature_total_variation_add_grad``) when
+    ``tv_on``, then the masked-Adam update of the step that
+    ``optimizer.advance()`` counted; ``grads`` by parameter name, as the
+    update took them."""
     loss_fn = make_loss_fn(model, cfg_train, Ks, poses, H, W, near, far, bg,
                            inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y,
                            active_budget=active_budget)
     w_tv = float(cfg_train.get("weight_tv_feature", 0.0))
 
-    def step(batch, tv_on, occ=None, tv_dense=True):
+    def body(batch, occ, tv_on, tv_dense):
         model.zero_grad(set_to_none=True)
         loss, mse = loss_fn(batch, occ)
         loss.backward()
@@ -132,10 +147,69 @@ def make_train_step(model: tineuvox.TiNeuVox, cfg_train,
             g = torch.zeros_like(model.feature) if g is None else g
             grads["feature"] = g + tineuvox.feature_tv_grad(
                 model, w_tv / batch["rgb"].shape[0], g, tv_dense)
-        optimizer.update(grads)
-        return loss.detach(), mse.detach()
+        optimizer.apply(grads)
+        return loss.detach(), mse.detach(), grads
+
+    return body
+
+
+def make_train_step(model: tineuvox.TiNeuVox, cfg_train,
+                    optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
+                    inverse_y=False, flip_x=False, flip_y=False,
+                    active_budget=None):
+    """``step(batch, tv_on, occ=None, tv_dense=True) -> (loss, mse)``: one
+    step of ``make_step_body`` run eagerly (the yardstick of
+    ``make_graphed_step``)."""
+    body = make_step_body(model, cfg_train, optimizer, Ks, poses, H, W,
+                          near, far, bg, inverse_y=inverse_y, flip_x=flip_x,
+                          flip_y=flip_y, active_budget=active_budget)
+
+    def step(batch, tv_on, occ=None, tv_dense=True):
+        optimizer.advance()
+        return body(batch, occ, tv_on, tv_dense)[:2]
 
     return step
+
+
+def step_inputs(n_rand: int, occ_shape, device):
+    """The static inputs of a training step, by batch key, and ``occ``
+    (the occupancy grid, bool ``occ_shape``) when ``occ_shape`` is given:
+    zero tensors."""
+    f32, i64 = torch.float32, torch.int64
+    spec = {"rgb": ((n_rand, 3), f32), "mask": ((n_rand,), f32),
+            "time": ((n_rand,), f32), "cam": ((n_rand,), i64),
+            "pix": ((n_rand,), i64)}
+    if occ_shape is not None:
+        spec["occ"] = (tuple(occ_shape), torch.bool)
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in spec.items()}
+
+
+def make_graphed_step(model: tineuvox.TiNeuVox, cfg_train,
+                      optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
+                      n_rand: int, inverse_y=False, flip_x=False,
+                      flip_y=False, active_budget=None,
+                      occ_shape=None) -> GraphedStep:
+    """One segment's steps: ``step(batch, (tv_on, tv_dense)) -> (loss,
+    mse, grads)`` of ``make_step_body`` as one CUDA-graph replay on a
+    CUDA device (a graph per setting of the two flags; its first call is
+    the step run eagerly, then captured), eagerly on the CPU. ``batch``
+    holds the step's host arrays by ``step_inputs`` key; each call loads
+    them into the static inputs and advances the optimizer. With
+    ``occ_shape`` the step reads the occupancy grid from the static input
+    ``step.inputs["occ"]``, which the caller refills in place. The
+    outputs are the graph's: the next call overwrites them."""
+    body = make_step_body(model, cfg_train, optimizer, Ks, poses, H, W,
+                          near, far, bg, inverse_y=inverse_y, flip_x=flip_x,
+                          flip_y=flip_y, active_budget=active_budget)
+    inputs = step_inputs(n_rand, occ_shape, Ks.device)
+    batch = {k: v for k, v in inputs.items() if k != "occ"}
+    occ = inputs.get("occ")
+
+    def keyed(tv_on, tv_dense):
+        return lambda: body(batch, occ, tv_on, tv_dense)
+
+    return GraphedStep(keyed, inputs, Ks.device, prepare=optimizer.advance)
 
 
 def refresh_occupancy(model: tineuvox.TiNeuVox, stepsize: float):
@@ -241,8 +315,10 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
                and occ_start <= n_iters)
     occ = None
 
-    def build_segment(occupancy_active):
-        optimizer = MaskedAdam(model, cfg_train)
+    def build_segment(occupancy_active, optimizer=None):
+        """A segment's graphed step (and a new optimizer unless one is
+        given)."""
+        optimizer = optimizer or MaskedAdam(model, cfg_train)
         budget = None
         if occupancy_active:
             n_s = model.cfg.max_steps(stepsize)
@@ -252,8 +328,11 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
                   f"{occ_frac:g} active_fraction) — padding "
                   f"{budget - demanded} "
                   f"({100 * (budget / max(demanded, 1) - 1):.1f}% over)")
-        step = make_train_step(model, cfg_train, optimizer, Ks, poses, H, W,
-                               near, far, bg, active_budget=budget, **flips)
+        step = make_graphed_step(
+            model, cfg_train, optimizer, Ks, poses, H, W, near, far, bg,
+            n_rand, active_budget=budget,
+            occ_shape=model.cfg.world_size if occupancy_active else None,
+            **flips)
         return step, optimizer
 
     start_step = 0
@@ -271,6 +350,7 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
             optimizer.load_state_from_jax(resume["opt_state"])
         if occupancy_active:
             occ = refresh_occupancy(model, stepsize)
+            step_fn.inputs["occ"].copy_(occ)
     print(f"stage1: world size {model.cfg.world_size} x "
           f"{model.cfg.voxel_dim} on {dev}")
 
@@ -278,10 +358,14 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
     tv_after = float(cfg_train.get("tv_after", 0))
     tv_every = int(cfg_train.get("tv_every", 1))
     tv_feature_before = float(cfg_train.get("tv_feature_before", 1e9))
+    w_tv = float(cfg_train.get("weight_tv_feature", 0.0))
     stats: Dict[str, Any] = {"psnr": [], "loss": [], "seconds": []}
     t0 = time.time()
     for global_step in range(1 + start_step, n_iters + 1):
-        if global_step == step_to_half:
+        # a new segment when the graph would read a grid, an optimizer or
+        # a parameter's storage that the step no longer uses
+        half = global_step == step_to_half
+        if half:
             model.feature.data = model.feature.data.to(torch.bfloat16)
         rebuild = False
         if global_step in pg_scale:
@@ -294,26 +378,25 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
         if use_occ and global_step == occ_start:
             occupancy_active = True
             rebuild = True
-        if rebuild:
-            step_fn, optimizer = build_segment(occupancy_active)
-            if occupancy_active:
-                occ = refresh_occupancy(model, stepsize)
-        elif occupancy_active and global_step % occ_every == 0:
+        if rebuild or half:
+            step_fn, optimizer = build_segment(
+                occupancy_active, None if rebuild else optimizer)
+        refresh = occupancy_active and (rebuild
+                                        or global_step % occ_every == 0)
+        if refresh:
             occ = refresh_occupancy(model, stepsize)
+        if occupancy_active and (refresh or half):
+            step_fn.inputs["occ"].copy_(occ)
 
         rgb, mval, tval, cam, pix = ray_index.gather(next(gen))
-        batch = {
-            "rgb": torch.as_tensor(rgb, dtype=torch.float32, device=dev),
-            "mask": torch.as_tensor(mval, dtype=torch.float32, device=dev),
-            "time": torch.as_tensor(tval, dtype=torch.float32, device=dev),
-            "cam": torch.as_tensor(cam, dtype=torch.int64, device=dev),
-            "pix": torch.as_tensor(pix, dtype=torch.int64, device=dev),
-        }
-        tv_on = (tv_after < global_step < tv_before
+        tv_on = (w_tv > 0 and tv_after < global_step < tv_before
                  and global_step % tv_every == 0)
-        loss, mse = step_fn(batch, tv_on,
-                            occ if occupancy_active else None,
-                            global_step < tv_feature_before)
+        # the graph's key: tv_dense matters only with tv_on
+        tv_key = (True, global_step < tv_feature_before) if tv_on \
+            else (False, True)
+        loss, mse, _ = step_fn(
+            {"rgb": rgb, "mask": mval, "time": tval, "cam": cam,
+             "pix": pix}, tv_key)
 
         if global_step % log_every == 0 or global_step == n_iters:
             psnr = -10.0 * np.log10(max(float(mse), 1e-12))

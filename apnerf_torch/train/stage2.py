@@ -12,6 +12,16 @@ with per-step lr decay, mid-stage checkpoints with resume, and with a
 (``payload``) and a GT | direct | full | LBS-weights panel sequence
 (``video_panels``, also written as a video there).
 
+On a CUDA device each training step is one replay of a captured CUDA
+graph (``make_graphed_step``, the counterpart of the JAX package's jitted
+step): forward, the seven terms, backward and the masked-Adam update, with
+every value that changes from step to step (the rays' pixels and colours,
+the time, the sparsity switch, the chamfer views, the Adam step sizes) in
+static inputs that the host fills in stream order, so it draws step i + 1
+while the card runs step i; it reads back only at the log, checkpoint and
+preview steps. On the CPU the same body runs eagerly. ``make_train_step``
+is the eager step, the yardstick.
+
 Host randomness draws from ``np.random.default_rng(seed)`` and the
 sampler's own generator in the JAX package's order, so both packages
 train on the same times and rays. The parameters are made by
@@ -49,6 +59,7 @@ from ..ops.marching import composite
 from ..render.render import write_video
 from ..render.renderers import weight_palette
 from ..utils import checkpoint as ckpt
+from ..utils.graphs import GraphedStep
 from ..utils.samplers import InverseProportionalSampler, curriculum_window
 from .masked_adam import MaskedAdam
 
@@ -131,7 +142,8 @@ def build_model(cfg, canonical, skeleton, tineuvox_params, tineuvox_cfg,
 def project_views(points, poses, Ks):
     """Pixel coordinates [V, N, 2] of ``points`` [N, 3] in each camera
     (``poses`` [V, 4, 4] camera-to-world, ``Ks`` [V, 3, 3])."""
-    w2c = torch.linalg.inv(poses)
+    # inv_ex: inv's own error check reads the device's status back
+    w2c = torch.linalg.inv_ex(poses).inverse
     cam = (torch.einsum("vab,nb->vna", w2c[:, :3, :3], points)
            + w2c[:, None, :3, 3])
     pix = torch.einsum("vna,vba->vnb", cam, Ks)
@@ -198,25 +210,82 @@ def make_loss_fn(model: tp.TemporalPoints, state, cfg_train, Ks, poses,
     return loss_fn
 
 
+def make_step_body(model: tp.TemporalPoints, state, cfg_train,
+                   optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
+                   n_chamfer_views: int, inverse_y=False, flip_x=False,
+                   flip_y=False):
+    """``body(batch) -> (metrics, grads)``: the loss, its backward and the
+    masked-Adam update of the step that ``optimizer.advance()`` counted;
+    ``metrics`` detached (``loss`` included), ``grads`` the gradient of
+    each parameter by name (None where none reaches it)."""
+    loss_fn = make_loss_fn(model, state, cfg_train, Ks, poses, H, W, near,
+                           far, bg, n_chamfer_views, inverse_y=inverse_y,
+                           flip_x=flip_x, flip_y=flip_y)
+
+    def body(batch):
+        model.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(batch)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        optimizer.apply(grads)
+        metrics["loss"] = loss
+        return {k: v.detach() for k, v in metrics.items()}, grads
+
+    return body
+
+
 def make_train_step(model: tp.TemporalPoints, state, cfg_train,
                     optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
                     n_chamfer_views: int, inverse_y=False, flip_x=False,
                     flip_y=False):
     """``step(batch) -> metrics`` (detached, ``loss`` included): the loss,
-    its backward and one masked-Adam update of ``model`` in place."""
-    loss_fn = make_loss_fn(model, state, cfg_train, Ks, poses, H, W, near,
-                           far, bg, n_chamfer_views, inverse_y=inverse_y,
-                           flip_x=flip_x, flip_y=flip_y)
+    its backward and one masked-Adam update of ``model`` in place, run
+    eagerly (the yardstick of ``make_graphed_step``; the parameters'
+    ``grad`` hold the step's gradients after it)."""
+    body = make_step_body(model, state, cfg_train, optimizer, Ks, poses, H,
+                          W, near, far, bg, n_chamfer_views,
+                          inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y)
 
     def step(batch):
-        model.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch)
-        loss.backward()
-        optimizer.update({n: p.grad for n, p in model.named_parameters()})
-        metrics["loss"] = loss
-        return {k: v.detach() for k, v in metrics.items()}
+        optimizer.advance()
+        return body(batch)[0]
 
     return step
+
+
+def step_inputs(n_rand: int, n_chamfer_views: int, device):
+    """The static inputs of a training step, by batch key: zero tensors of
+    the batch's shapes and types (``t`` [1], ``sparsity_on`` a scalar)."""
+    f32, i64 = torch.float32, torch.int64
+    spec = {"rgb": ((n_rand, 3), f32), "mask": ((n_rand,), f32),
+            "t": ((1,), f32), "cam": ((n_rand,), i64),
+            "pix": ((n_rand,), i64), "sparsity_on": ((), f32)}
+    if n_chamfer_views > 0:
+        V = n_chamfer_views
+        spec.update(chamfer_poses=((V, 4, 4), f32),
+                    chamfer_Ks=((V, 3, 3), f32),
+                    chamfer_mask_pts=((V, CH_M, 2), f32),
+                    chamfer_pcd_idx=((CH_N,), i64))
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in spec.items()}
+
+
+def make_graphed_step(model: tp.TemporalPoints, state, cfg_train,
+                      optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
+                      n_chamfer_views: int, n_rand: int, inverse_y=False,
+                      flip_x=False, flip_y=False) -> GraphedStep:
+    """``step(batch) -> (metrics, grads)`` of ``make_step_body`` as one
+    CUDA-graph replay on a CUDA device (the first call: the step run
+    eagerly, then captured), eagerly on the CPU. ``batch`` holds the
+    step's host values by ``step_inputs`` key; each call loads them into
+    the static inputs and advances the optimizer. The outputs are the
+    graph's: the next call overwrites them."""
+    body = make_step_body(model, state, cfg_train, optimizer, Ks, poses, H,
+                          W, near, far, bg, n_chamfer_views,
+                          inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y)
+    inputs = step_inputs(n_rand, n_chamfer_views, Ks.device)
+    return GraphedStep(lambda: (lambda: body(inputs)), inputs, Ks.device,
+                       prepare=optimizer.advance)
 
 
 @torch.no_grad()
@@ -349,9 +418,12 @@ def train_pcd(cfg, data_dict, canonical, skeleton, tineuvox_params,
     imgs_by_time = {t: np.nonzero(times_tr == t)[0] for t in unique_times}
     n_views_min = min(len(v) for v in imgs_by_time.values())
     n_chamfer_views = min(5, n_views_min) if w_cham2d > 0 else 0
-    step_fn = make_train_step(model, state, cfg_train, optimizer, Ks, poses,
-                              H, W, near, far, float(cfg_train.bg_col),
-                              n_chamfer_views, **flips)
+    step_fn = make_graphed_step(model, state, cfg_train, optimizer, Ks,
+                                poses, H, W, near, far,
+                                float(cfg_train.bg_col), n_chamfer_views,
+                                n_rand, **flips)
+    poses_np = np.asarray(data_dict["poses"], np.float32)
+    Ks_np = np.asarray(data_dict["Ks"], np.float32)
 
     mask_pix = []
     if n_chamfer_views > 0:
@@ -457,10 +529,7 @@ def train_pcd(cfg, data_dict, canonical, skeleton, tineuvox_params,
             sel = rng.integers(b_lo, b_hi, size=n_rand)
             rgb, mval, _, cam, pix = ray_index.gather(sel)
             batch = {
-                "rgb": tensor(rgb), "mask": tensor(mval),
-                "t": np.float32(t_key),
-                "cam": tensor(cam, torch.int64),
-                "pix": tensor(pix, torch.int64),
+                "rgb": rgb, "mask": mval, "t": t_key, "cam": cam, "pix": pix,
                 "sparsity_on": (1.0 if global_step >= weight_start_iter
                                 else 0.0),
             }
@@ -475,14 +544,13 @@ def train_pcd(cfg, data_dict, canonical, skeleton, tineuvox_params,
                 mask_pts = np.stack([
                     mask_pix[r][rng.integers(0, len(mask_pix[r]), CH_M)]
                     for r in rows], 0)
-                cams_t = tensor(cams_sel, torch.int64)
-                batch["chamfer_poses"] = poses[cams_t]
-                batch["chamfer_Ks"] = Ks[cams_t]
-                batch["chamfer_mask_pts"] = tensor(mask_pts)
-                batch["chamfer_pcd_idx"] = tensor(
-                    rng.integers(0, mcfg.n_points, CH_N), torch.int64)
+                batch["chamfer_poses"] = poses_np[cams_sel]
+                batch["chamfer_Ks"] = Ks_np[cams_sel]
+                batch["chamfer_mask_pts"] = mask_pts
+                batch["chamfer_pcd_idx"] = rng.integers(0, mcfg.n_points,
+                                                        CH_N)
 
-            metrics = step_fn(batch)
+            metrics, _ = step_fn(batch)
 
             if global_step % log_every == 0 or global_step == n_iters:
                 terms = {k: float(v) for k, v in metrics.items()}

@@ -52,11 +52,20 @@ and no result line is printed):
    also beside the time of the WMMA kernels they replace.
 4. train   -- stage 1 of the nerf family at full width (160^3 x 12 grid,
    defor_depth 5, net_width 128, 4096 rays a step) on a 6-view 400 x 400
-   arm scene, ``scene_rep_reconstruction`` for ``TRAIN_STEPS`` steps with
-   one grid rebuild (pg_scale) and the occupancy switch inside the run:
-   finite and falling losses, K5 launched, one step's feature-grid
-   gradient through K5 against the same through the plain version (under
-   ``GRAD_REL_ERR``, beside the bf16-row control), ``fine_last.pkl``
+   arm scene, ``scene_rep_reconstruction`` for ``TRAIN_STEPS`` steps, each
+   a CUDA-graph replay after its segment's first, with one grid rebuild
+   (pg_scale), the occupancy switch and a refresh (``TRAIN_REFRESH``)
+   inside the run: three segments, each captured once; finite and falling
+   losses, K5 launched, one step's feature-grid gradient through K5
+   against the same through the plain version (under ``GRAD_REL_ERR``,
+   beside the bf16-row control); then both ways (``both_ways``): the
+   graphed step against the eager one (``make_train_step``) from one
+   state, the loss equal, each gradient leaf under ``GRAD_REL_ERR`` of its
+   max |grad| beside two eager runs' difference, ``TRAJ_STEPS``-step
+   trajectories within ``TRAJ_GAP_MULT`` times two eager ones' gap,
+   launches a step equal, ``BOTH_WAYS_STEPS`` steps timed each way, the
+   capture's ms, peak memory and host launch calls a step each way (a
+   replayed step launches one graph and no kernel); ``fine_last.pkl``
    written, reloaded and giving the same alpha; ``fine_progress.pkl``
    (model and Adam state) written for phase 7.
 5. render  -- the bench scene of ``bench.py:build_model`` (10^4 points,
@@ -97,14 +106,17 @@ and no result line is printed):
    bone at least, the joints inside the cloud's bbox), ``train_pcd`` for
    ``STAGE2_STEPS`` steps of 8192 rays with every loss term at the
    family's sample budget of 192 (``STAGE2_MAX_STEPS``: the fused group
-   sampler; K1 launched once, K2 and K3 on every step, K4-K6 never;
-   finite losses whose last third averages below the first), one step's
+   sampler; every step a graph replay after the first; K1 launched once,
+   K2 and K3 on every step, K4-K6 never; finite losses whose last third
+   averages below the first), one step's
    gradients through K2 / K3 against their plain versions, on the fused
    group sampler and on the non-fused sampler pair, grouped and per
    sample (the loss equal, every
    leaf under ``STAGE2_GRAD_REL_ERR`` of its max |grad|, beside two
-   kernel runs' own difference), two steps with ``featmlp_train`` (K4 in
-   the forward, the recompute backward; K4 against its plain version on
+   kernel runs' own difference), the graphed step both ways as in phase 4
+   (the gradients under ``STAGE2_GRAD_REL_ERR``), the same with
+   ``featmlp_train`` (K4 in the forward and the recompute backward inside
+   the graph; K4 against its plain version on
    the step's inputs under phase 3's relative gates, beside the control
    without its per-layer bf16 round; the step's gradients against the XLA
    formulation's under ``K4_TRAIN_MEAN_REL_ERR``), then
@@ -127,8 +139,8 @@ and no result line is printed):
    ``--repose_pcd --degree_threshold 30`` with the shared k-NN and
    ``fused_agg``: K6 and not K4, 60 frames and the video (or its
    animated-PNG stand-in); (4) the backbone's ``--render_test``. Times:
-   the scene, a PNG decode, stage-1 and stage-2 ms/step, the export, each
-   invocation.
+   the scene, a PNG decode, stage-1 and stage-2 ms/step (graph replays),
+   the export, each invocation.
 9. a JSON line of the kernels (each kernel's launches summed over the
    paths of phases 4-8, and by path), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
@@ -245,6 +257,21 @@ K5_MAX_ABS_ERR = 1.5e-3
 GRAD_REL_ERR = 6e-6
 TRAIN_VIEWS = 6
 TRAIN_STEPS = 10
+# Phase 4's run refreshes the occupancy grid at step TRAIN_REFRESH, so its
+# three segments (before the occupancy switch at 2, before the rebuild at
+# 4, after it) each capture a graph and one takes a refresh in place.
+TRAIN_REFRESH = 8
+# Phases 4 and 7 hold the graphed training step against the eager one
+# (``make_train_step``) from one state: the loss equal, each gradient leaf
+# under the phase's ceiling of its max |grad| (GRAD_REL_ERR,
+# STAGE2_GRAD_REL_ERR), beside two eager runs' own difference; over
+# TRAJ_STEPS steps the graphed losses within TRAJ_GAP_MULT times the gap
+# of two eager trajectories (0 when those agree bit for bit: both run the
+# same kernels in the same order, and only the atomics of the gathers'
+# backward reorder fp32 sums); BOTH_WAYS_STEPS steps timed each way.
+TRAJ_STEPS = 10
+TRAJ_GAP_MULT = 10.0
+BOTH_WAYS_STEPS = 20
 # Phase 7 (stage 2), from readings on an NVIDIA H100 80GB HBM3, 700 W.
 # EXPORT_STEPS: the stage-1 steps after phase 4's at which the export
 # brackets canonical_pcd_num at the nerf family's 0.05 thresholds: the
@@ -1316,12 +1343,162 @@ def phase_scatter(torch, report):
           "on the CPU and from run to run: " + "; ".join(lines), flush=True)
 
 
-def nerf_config(n_steps):
+def nerf_config(n_steps, refresh_every=500):
     """The nerf family's defaults at full width, cut to ``n_steps`` steps
-    with pg_scale [4] (one rebuild, from 160^3 / 2 to 160^3 voxels) and
-    occupancy_start 2."""
+    with pg_scale [4] (one rebuild, from 160^3 / 2 to 160^3 voxels),
+    occupancy_start 2 and the occupancy refreshed every ``refresh_every``
+    steps (the family's 500 by default)."""
     from apnerf_torch.config import nerf_default
-    return nerf_default(N_iters=n_steps, pg_scale=[4], occupancy_start=2)
+    return nerf_default(N_iters=n_steps, pg_scale=[4], occupancy_start=2,
+                        occupancy_update_every=refresh_every)
+
+
+def train_state(model, opt):
+    """What a training step changes: the parameters, the Adam moments and
+    count (copies)."""
+    return ({n: p.detach().clone() for n, p in model.named_parameters()},
+            {n: m.clone() for n, m in opt.mu.items()},
+            {n: m.clone() for n, m in opt.nu.items()}, opt.count)
+
+
+def put_state(torch, model, opt, saved):
+    """``train_state``'s copy put back in place (the graphs read these
+    tensors)."""
+    params, mu, nu, count = saved
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(params[n])
+    for n in mu:
+        opt.mu[n].copy_(mu[n])
+        opt.nu[n].copy_(nu[n])
+    opt.count = count
+
+
+def all_grads(torch, model, grads):
+    """Every parameter's gradient from ``grads`` (by name; None is zero),
+    copied."""
+    return {n: torch.zeros_like(p) if grads.get(n) is None
+            else grads[n].detach().float().clone()
+            for n, p in model.named_parameters()}
+
+
+def both_ways(torch, label, step, graphed, eager, batches, model, opt,
+              gate):
+    """One segment's graphed step ``step`` against the eager step from one
+    state (the model's as it is, restored after): ``graphed(batch)`` /
+    ``eager(batch)`` -> (loss, gradients by name) of one step on a host
+    batch. The eager step first, its peak memory read before a graph
+    exists; then the graphed step's first call (the step run eagerly and
+    the capture: its ms, its peak memory), one replay against two eager
+    steps (loss equal, each gradient leaf under ``gate`` of its max
+    |grad|), the launches of a step each way (equal), ``TRAJ_STEPS``-step
+    trajectories (graphed vs eager within ``TRAJ_GAP_MULT`` times the gap
+    of two eager ones), ``BOTH_WAYS_STEPS`` steps timed each way (each
+    synchronized; and graphed ones queued back to back), and the host's
+    launch calls of a step each way under the profiler. Returns the line's
+    readings."""
+    from apnerf_torch import kernels
+    from apnerf_torch.train.profile_stage1 import host_calls
+    s0 = train_state(model, opt)
+
+    def run(fn, batch):
+        loss, grads = fn(batch)
+        torch.cuda.synchronize()
+        return loss.detach().clone(), all_grads(torch, model, grads)
+
+    put_state(torch, model, opt, s0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    le, ge = run(eager, batches[0])
+    e_peak = torch.cuda.max_memory_allocated()
+    put_state(torch, model, opt, s0)
+    le2, ge2 = run(eager, batches[0])
+    put_state(torch, model, opt, s0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run(graphed, batches[0])
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    g_peak = torch.cuda.max_memory_allocated()
+    put_state(torch, model, opt, s0)
+    lg, gg = run(graphed, batches[0])
+    worst, mean = grad_gap(gg, ge)
+    worst2, mean2 = grad_gap(ge2, ge)
+    counts = {}
+    for way, fn in (("graphed", graphed), ("eager", eager)):
+        put_state(torch, model, opt, s0)
+        kernels.reset_launches()
+        fn(batches[0])
+        torch.cuda.synchronize()
+        counts[way] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    traj = {}
+    for way, fn in (("graphed", graphed), ("eager", eager),
+                    ("eager2", eager)):
+        put_state(torch, model, opt, s0)
+        traj[way] = np.array([float(fn(b)[0])
+                              for b in batches[:TRAJ_STEPS]])
+    t_gap = float(np.abs(traj["graphed"] - traj["eager"]).max())
+    e_gap = float(np.abs(traj["eager2"] - traj["eager"]).max())
+    timed = batches[TRAJ_STEPS:TRAJ_STEPS + BOTH_WAYS_STEPS]
+    ms = {}
+    for way, fn in (("graphed", graphed), ("eager", eager)):
+        put_state(torch, model, opt, s0)
+        ms[way] = []
+        for b in timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(b)
+            torch.cuda.synchronize()
+            ms[way].append(1e3 * (time.perf_counter() - t0))
+    put_state(torch, model, opt, s0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in timed:
+        out = graphed(b)
+    float(out[0])
+    queued_ms = 1e3 * (time.perf_counter() - t0) / len(timed)
+    host = {}
+    for way, fn in (("graphed", graphed), ("eager", eager)):
+        put_state(torch, model, opt, s0)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn(batches[0])
+            torch.cuda.synchronize()
+        host[way] = host_calls(prof)
+    put_state(torch, model, opt, s0)
+    capture = {k: round(v, 1) for k, v in step.capture_ms.items()}
+    print(f"{label} both ways ({nvidia_smi_line()}): a step graphed "
+          f"{ms_text(ms['graphed'])}, eager {ms_text(ms['eager'])}, "
+          f"graphed queued back to back {queued_ms:.2f} ms a step; the "
+          f"first graphed step {first_ms:.1f} ms with the capture "
+          f"{capture} ms; peak memory {g_peak / 2 ** 30:.3f} GiB graphed "
+          f"(first step, capture included), {e_peak / 2 ** 30:.3f} GiB "
+          f"eager; host launch calls a step graphed {host['graphed']}, "
+          f"eager {host['eager']}; launches a step graphed "
+          f"{counts['graphed']}, eager {counts['eager']}; one step: loss "
+          f"equal {torch.equal(lg, le)} ({float(lg):.6f}), worst leaf max "
+          f"abs err / max |grad| graphed vs eager {worst:.3g} (gate "
+          f"{gate:g}), mean {mean:.3g}, two eager steps {worst2:.3g}, mean "
+          f"{mean2:.3g}; {TRAJ_STEPS} steps: losses graphed vs eager max "
+          f"abs diff {t_gap:.3g} (gate {TRAJ_GAP_MULT:g} x two eager "
+          f"trajectories' {e_gap:.3g}); losses graphed "
+          f"{[round(float(x), 6) for x in traj['graphed']]}", flush=True)
+    if not (torch.equal(lg, le) and worst <= gate):
+        raise AssertionError(f"{label}: graphed vs eager loss {float(lg)} /"
+                             f" {float(le)}, gradients {worst:.3g}")
+    if counts["graphed"] != counts["eager"]:
+        raise AssertionError(f"{label}: launches graphed "
+                             f"{counts['graphed']}, eager {counts['eager']}")
+    if not t_gap <= TRAJ_GAP_MULT * e_gap:
+        raise AssertionError(f"{label}: trajectories {t_gap:.3g} apart, "
+                             f"two eager ones {e_gap:.3g}")
+    # a replayed step launches its graph and no kernel from the host
+    if host["graphed"]["graph"] != 1 or host["graphed"]["kernel"]:
+        raise AssertionError(f"{label}: a graphed step made the launch "
+                             f"calls {host['graphed']}")
+    return dict(graphed_ms=statistics.median(ms["graphed"]),
+                eager_ms=statistics.median(ms["eager"]),
+                queued_ms=queued_ms, launches=counts["graphed"])
 
 
 def feature_grad(torch, model, loss_fn, batch, occ):
@@ -1343,18 +1520,26 @@ def phase_train(torch, ckpt_dir):
     t0 = time.perf_counter()
     data = make_scene(TRAIN_VIEWS, H, W, seed=0)
     scene_s = time.perf_counter() - t0
-    cfg = nerf_config(TRAIN_STEPS)
+    cfg = nerf_config(TRAIN_STEPS, refresh_every=TRAIN_REFRESH)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model, mcfg, stats = stage1.scene_rep_reconstruction(
-        cfg, data, seed=0, log_every=1, device=DEVICE,
-        ckpt_path=os.path.join(ckpt_dir, "fine_progress.pkl"),
-        ckpt_every=TRAIN_STEPS)
+    made = {}
+    with record(stage1, "make_graphed_step", made):
+        model, mcfg, stats = stage1.scene_rep_reconstruction(
+            cfg, data, seed=0, log_every=1, device=DEVICE,
+            ckpt_path=os.path.join(ckpt_dir, "fine_progress.pkl"),
+            ckpt_every=TRAIN_STEPS)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = {k: kernels.LAUNCHES[k] for k in ("scatter",)}
+    # one graph a segment: before the occupancy switch, before the
+    # rebuild, after it (the refresh at TRAIN_REFRESH copied in place)
+    segments = [[round(v, 1) for v in st.capture_ms.values()]
+                for st in made.pop("make_graphed_step")]
+    if len(segments) != 3 or any(len(c) != 1 for c in segments):
+        raise AssertionError(f"train: segment captures {segments}")
     losses = stats["loss"]
     secs = [0.0] + stats["seconds"]
     step_ms = [1e3 * (b - a) for a, b in zip(secs[:-1], secs[1:])]
@@ -1408,6 +1593,37 @@ def phase_train(torch, ckpt_dir):
         raise AssertionError(f"train: grid gradient differs ({rel:g})")
     del g_k, g_k2, g_p, g_c
 
+    # the graphed step against the eager one, on the occupancy path at
+    # the final grid (one segment of the run's kind)
+    from apnerf_torch.train.masked_adam import MaskedAdam
+    opt = MaskedAdam(model, ct)
+    n_rand = int(ct["N_rand"])
+    gstep = stage1.make_graphed_step(
+        model, ct, opt, Ks, poses, H, W, data["near"], data["far"], 1.0,
+        n_rand, active_budget=budget, occ_shape=mcfg.world_size)
+    gstep.inputs["occ"].copy_(occ)
+    estep = stage1.make_train_step(model, ct, opt, Ks, poses, H, W,
+                                   data["near"], data["far"], 1.0,
+                                   active_budget=budget)
+    gen = raydata.batch_index_generator(index.n, n_rand, seed=11)
+    host = []
+    for _ in range(TRAJ_STEPS + BOTH_WAYS_STEPS):
+        rgb, mval, tval, cam, pix = index.gather(next(gen))
+        host.append({"rgb": rgb, "mask": mval, "time": tval, "cam": cam,
+                     "pix": pix})
+
+    def graphed(b):
+        loss, _, grads = gstep(b, (False, True))
+        return loss, grads
+
+    def eager(b):
+        loss, _ = estep(on_card(torch, b), False, occ, True)
+        return loss, {n: p.grad for n, p in model.named_parameters()}
+
+    both_ways(torch, "train stage1", gstep, graphed, eager, host, model,
+              opt, GRAD_REL_ERR)
+    del gstep, estep, opt
+
     path = os.path.join(ckpt_dir, "fine_last.pkl")
     save_tineuvox(path, model)
     back = load_tineuvox(path, device=DEVICE)
@@ -1421,7 +1637,8 @@ def phase_train(torch, ckpt_dir):
                              "model")
     med = statistics.median(after)
     print(f"train stage1: nerf width, world size {mcfg.world_size} x "
-          f"{mcfg.voxel_dim}, {TRAIN_STEPS} steps of {ct['N_rand']} rays on "
+          f"{mcfg.voxel_dim}, {TRAIN_STEPS} graphed steps of {ct['N_rand']} "
+          f"rays (a refresh at step {TRAIN_REFRESH}) on "
           f"{TRAIN_VIEWS} views of {H}x{W} (scene made in {scene_s:.1f} s); "
           f"losses {[round(x, 6) for x in losses]}; "
           f"{med:.1f} ms/step (median of steps {rebuild + 1}-{TRAIN_STEPS}, "
@@ -1429,8 +1646,8 @@ def phase_train(torch, ckpt_dir):
           f"{nvidia_smi_line()}); whole run {train_s:.1f} s, step times "
           f"{[round(x, 1) for x in step_ms]} ms; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
-          f"launches {launches}; fine_last.pkl reloads with equal alpha",
-          flush=True)
+          f"launches {launches}; segments' captures {segments} ms; "
+          f"fine_last.pkl reloads with equal alpha", flush=True)
     return launches, model, data, stepsize
 
 
@@ -1928,9 +2145,24 @@ def check_export(art, bracketed, mcfg):
                              f"inside {inside}")
 
 
+def on_card(torch, batch):
+    """A host batch as the eager steps take it: arrays on the card (index
+    arrays as int64), numbers as they are."""
+    out = {}
+    for k, v in batch.items():
+        if np.ndim(v) == 0:
+            out[k] = v
+        else:
+            a = np.asarray(v)
+            out[k] = torch.as_tensor(
+                a.astype(np.int64 if a.dtype.kind in "iu" else np.float32),
+                device=DEVICE)
+    return out
+
+
 def stage2_batch(torch, data, index, n_points, n_rand, seed):
-    """One training batch as ``train_pcd`` makes it: ``n_rand`` rays of
-    the middle time, one chamfer view (its own camera)."""
+    """One training batch as ``train_pcd`` draws it, on the host: ``n_rand``
+    rays of the middle time, one chamfer view (its own camera)."""
     from apnerf_torch.train.stage2 import CH_M, CH_N
     rng = np.random.default_rng(seed)
     times = np.unique(data["times"])
@@ -1941,18 +2173,13 @@ def stage2_batch(torch, data, index, n_points, n_rand, seed):
     ys, xs = np.nonzero(np.asarray(data["masks"][row]).reshape(H, W) > 0)
     mpix = np.stack([ys, xs], -1).astype(np.float32)
     c = int(data["img_to_cam"][row])
-    dev = torch.device(DEVICE)
     return {
-        "rgb": torch.tensor(rgb, device=dev),
-        "mask": torch.tensor(mval, device=dev), "t": np.float32(t_key),
-        "cam": torch.tensor(cam, device=dev).long(),
-        "pix": torch.tensor(pix, device=dev).long(), "sparsity_on": 1.0,
-        "chamfer_poses": torch.tensor(data["poses"][c:c + 1], device=dev),
-        "chamfer_Ks": torch.tensor(data["Ks"][c:c + 1], device=dev),
-        "chamfer_mask_pts": torch.tensor(
-            mpix[rng.integers(0, len(mpix), CH_M)][None], device=dev),
-        "chamfer_pcd_idx": torch.tensor(rng.integers(0, n_points, CH_N),
-                                        device=dev)}
+        "rgb": rgb, "mask": mval, "t": np.float32(t_key), "cam": cam,
+        "pix": pix, "sparsity_on": 1.0,
+        "chamfer_poses": np.asarray(data["poses"][c:c + 1], np.float32),
+        "chamfer_Ks": np.asarray(data["Ks"][c:c + 1], np.float32),
+        "chamfer_mask_pts": mpix[rng.integers(0, len(mpix), CH_M)][None],
+        "chamfer_pcd_idx": rng.integers(0, n_points, CH_N)}
 
 
 def stage2_grads(torch, model, loss_fn, batch):
@@ -2110,13 +2337,17 @@ def phase_stage2(torch, data, ckpt_dir, stage1_cfg):
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model, mcfg, state, stats = stage2.train_pcd(
-        cfg, data, can, sk, heads, s1cfg, bbox, seed=0,
-        n_iters=STAGE2_STEPS, log_every=1, callback=tick,
-        max_steps=STAGE2_MAX_STEPS, device=DEVICE)
+    made = {}
+    with record(stage2, "make_graphed_step", made):
+        model, mcfg, state, stats = stage2.train_pcd(
+            cfg, data, can, sk, heads, s1cfg, bbox, seed=0,
+            n_iters=STAGE2_STEPS, log_every=1, callback=tick,
+            max_steps=STAGE2_MAX_STEPS, device=DEVICE)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    capture = [round(v, 1) for st in made.pop("make_graphed_step")
+               for v in st.capture_ms.values()]
     peak = torch.cuda.max_memory_allocated()
     losses = np.asarray(stats["loss"])
     terms = stats["terms"]
@@ -2146,7 +2377,8 @@ def phase_stage2(torch, data, ckpt_dir, stage1_cfg):
           f"sampler, "
           f"exact k-NN: M_full {M_full}, M_act {M_act}, pass budget "
           f"{M_pass}; median {statistics.median(step_ms):.1f} ms/step "
-          f"(steps 2-{STAGE2_STEPS}, synchronized; {nvidia_smi_line()}); "
+          f"(steps 2-{STAGE2_STEPS}, graph replays, synchronized; "
+          f"{nvidia_smi_line()}); the capture {capture} ms; "
           f"step ms {[round(x, 1) for x in step_ms]}; whole call "
           f"{train_s:.1f} s; peak device memory {peak / 2 ** 30:.2f} GiB; "
           f"launches {launches}; losses "
@@ -2162,7 +2394,8 @@ def phase_stage2(torch, data, ckpt_dir, stage1_cfg):
         list(data["images"]), list(data["masks"]), data["times"],
         data["img_to_cam"], data["poses"], data["Ks"], H, W, bbox[0],
         bbox[1], data["near"], data["far"], device=DEVICE)
-    batch = stage2_batch(torch, data, index, mcfg.n_points, n_rand, 5)
+    batch = on_card(torch, stage2_batch(torch, data, index, mcfg.n_points,
+                                        n_rand, 5))
     loss_fn = stage2.make_loss_fn(model, state, cfg.pcd_train_config,
                                   dev_Ks, dev_poses, H, W, data["near"],
                                   data["far"], 1.0, 1)
@@ -2191,21 +2424,40 @@ def phase_stage2(torch, data, ckpt_dir, stage1_cfg):
         del gk, gk2, gp
     model.cfg = mcfg
 
-    # ---- featmlp_train: K4 in the forward, the recompute backward
+    # ---- the graphed step against the eager one, from the trained state
+    def stage2_both_ways(label):
+        opt = MaskedAdam(model, cfg.pcd_train_config)
+        gstep = stage2.make_graphed_step(
+            model, state, cfg.pcd_train_config, opt, dev_Ks, dev_poses, H,
+            W, data["near"], data["far"], 1.0, 1, n_rand)
+        estep = stage2.make_train_step(
+            model, state, cfg.pcd_train_config, opt, dev_Ks, dev_poses, H,
+            W, data["near"], data["far"], 1.0, 1)
+        host = [stage2_batch(torch, data, index, mcfg.n_points, n_rand,
+                             20 + i)
+                for i in range(TRAJ_STEPS + BOTH_WAYS_STEPS)]
+
+        def graphed(b):
+            metrics, grads = gstep(b)
+            return metrics["loss"], grads
+
+        def eager(b):
+            loss = estep(on_card(torch, b))["loss"]
+            return loss, {n: p.grad for n, p in model.named_parameters()}
+
+        return both_ways(torch, label, gstep, graphed, eager, host, model,
+                         opt, STAGE2_GRAD_REL_ERR)
+
+    stage2_both_ways("stage2 train")
+
+    # ---- featmlp_train: K4 in the forward, the recompute backward, in
+    # the graphed step
     model.cfg = dataclasses.replace(mcfg, featmlp_kernel=True)
-    opt = MaskedAdam(model, cfg.pcd_train_config)
-    step = stage2.make_train_step(model, state, cfg.pcd_train_config, opt,
-                                  dev_Ks, dev_poses, H, W, data["near"],
-                                  data["far"], 1.0, 1)
-    kernels.reset_launches()
-    k4_losses = [float(step(stage2_batch(torch, data, index, mcfg.n_points,
-                                         n_rand, 6 + i))["loss"])
-                 for i in range(2)]
-    torch.cuda.synchronize()
-    k4_launches = dict(kernels.LAUNCHES)
-    if k4_launches["featmlp"] < 2 or not np.isfinite(k4_losses).all():
-        raise AssertionError(f"stage2 featmlp_train: launches {k4_launches},"
-                             f" losses {k4_losses}")
+    k4_both = stage2_both_ways("stage2 featmlp_train")
+    k4_launches = k4_both["launches"]
+    if k4_launches.get("featmlp", 0) < 1:
+        raise AssertionError(f"stage2 featmlp_train: launches a step "
+                             f"{k4_launches}")
     _, g4 = stage2_grads(torch, model, loss_fn, batch)
     with plain_kernels(featmlp=featmlp_fp32_layers):
         _, gc = stage2_grads(torch, model, loss_fn, batch)
@@ -2230,9 +2482,9 @@ def phase_stage2(torch, data, ckpt_dir, stage1_cfg):
     b_max, b_mean = grad_gap(gb, gr)
     iso, iso_mean = grad_gap(rk, rf)
     iso_c, iso_c_mean = grad_gap(rb, rf)
-    print(f"stage2 featmlp_train: two steps with K4 in the forward "
-          f"(launches {k4_launches}, losses {[round(x, 5) for x in k4_losses]}"
-          f"); {k4_line}; the step's gradients vs the XLA formulation's: "
+    print(f"stage2 featmlp_train: K4 in the forward of the graphed step "
+          f"(launches a step {k4_launches}); {k4_line}; the step's "
+          f"gradients vs the XLA formulation's: "
           f"mean abs err / max |grad| {k4_mean:.3g} (ceiling "
           f"{K4_TRAIN_MEAN_REL_ERR:g}), worst leaf max {k4_max:.3g}; "
           f"controls: K4 without its per-layer bf16 round mean {c_mean:.3g}"
@@ -2330,10 +2582,11 @@ def record(mod, name, store, timed=False):
 
 @contextmanager
 def timed_steps(stage2, log):
-    """Every stage-2 step of ``train_pcd`` timed (synchronized) and its
-    loss logged: ``log`` gets (seconds, loss) a step."""
+    """Every stage-2 step of ``train_pcd`` (a graph replay after the
+    first) timed (synchronized) and its loss logged: ``log`` gets
+    (seconds, loss) a step."""
     import torch
-    real = stage2.make_train_step
+    real = stage2.make_graphed_step
 
     def make(*args, **kwargs):
         step = real(*args, **kwargs)
@@ -2343,10 +2596,10 @@ def timed_steps(stage2, log):
             t0 = time.perf_counter()
             out = step(batch)
             torch.cuda.synchronize()
-            log.append((time.perf_counter() - t0, float(out["loss"])))
+            log.append((time.perf_counter() - t0, float(out[0]["loss"])))
             return out
         return timed
-    with mock.patch.object(stage2, "make_train_step", make):
+    with mock.patch.object(stage2, "make_graphed_step", make):
         yield
 
 
@@ -2475,13 +2728,14 @@ def cli_invocations(torch, work, writer, t_phase):
           f"N_iters {CLI_STAGE1_STEPS} / {CLI_STAGE2_STEPS}> --i_print 5 "
           f"--i_save 10 in {train_s:.1f} s ({nvidia_smi_line()}): the "
           f"dataset loaded (PNG decode, half_res) in {load_s:.2f} s; stage 1 "
-          f"{statistics.median(s1_ms):.1f} ms/step (median over 5-step "
-          f"intervals after the first: {[round(x, 1) for x in s1_ms]}), "
+          f"{statistics.median(s1_ms):.1f} ms/step (graph replays; median "
+          f"over 5-step intervals after the first: "
+          f"{[round(x, 1) for x in s1_ms]}), "
           f"losses {[round(float(x), 5) for x in l1]}; export "
           f"{export_s:.1f} s, {n_pts} points, "
           f"{len(art['skeleton']['bones'])} bones; stage 2 "
           f"{statistics.median(s2_ms):.1f} ms/step (median of steps "
-          f"2-{CLI_STAGE2_STEPS}, synchronized), losses "
+          f"2-{CLI_STAGE2_STEPS}: graph replays, synchronized), losses "
           f"{[round(float(x), 4) for x in l2]}; launches {launches}; "
           f"tensorboard files {tb}", flush=True)
     total = dict(launches)
