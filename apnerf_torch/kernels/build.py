@@ -51,6 +51,10 @@ SIGNATURES = {
     # q, nbr, rot, feat, image, b1, bl, S, share, kc, K, eps, F, n_pe,
     # P_pad, n_layers, h, kd2, stream
     "agg_launch": [P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, I, P, P, P],
+    # M, P, R, U, S, V, stream
+    "procrustes_launch": [P, I, P, P, P, P, P],
+    # G, U, S, V, P, dM, stream
+    "procrustes_grad_launch": [P, P, P, P, I, P, P],
 }
 
 _lib = None

@@ -140,3 +140,14 @@ def forward(warper: PointWarper, cfg: WarpConfig, tree, canonical_pcd,
         "thetas": thetas,
         "global_t": global_t,
     }
+
+
+def get_thetas(warper: PointWarper, cfg: WarpConfig,
+               ts_embed: torch.Tensor) -> torch.Tensor:
+    """Per-time rotation angles ``[..., J]`` of the time embeddings
+    ``ts_embed [..., t_dim]``: the axis-angle form (the first three of
+    each joint's four parameters) through ``rodrigues``, as the JAX
+    package's ``get_thetas`` takes them."""
+    p = transform_params(warper, ts_embed)                      # [..., J+1, 4]
+    _, thetas = rodrigues(p[..., :-1, :3].reshape(-1, 3))
+    return thetas.reshape(*ts_embed.shape[:-1], cfg.n_joints)

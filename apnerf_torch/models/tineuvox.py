@@ -99,6 +99,16 @@ class TiNeuVoxConfig:
         return 0 if self.no_view_dir else 3 + 3 * self.viewbase_pe * 2
 
     @property
+    def rgb_views_ch(self) -> int:
+        """The colour head's view channels: the view encoding, and with
+        ``add_cam`` camnet's output beside it, as the reference TiNeuVox
+        sizes its RGBNet (the JAX package's head omits camnet's channels,
+        so its add_cam forward fails on the shape)."""
+        if self.no_view_dir or not self.add_cam:
+            return self.views_ch
+        return self.views_ch + self.timenet_output
+
+    @property
     def pts_ch(self) -> int:
         return 3 + 3 * self.posbase_pe * 2
 
@@ -190,7 +200,7 @@ class TiNeuVox(nn.Module):
         self.featurenet = MLP([cfg.featurenet_input, W],
                               final_activation="relu", device=device)
         self.densitynet = MLP([W, 1], device=device)
-        self.rgbnet = RGBNet(W, cfg.views_ch, device)
+        self.rgbnet = RGBNet(W, cfg.rgb_views_ch, device)
 
     def reset_parameters_(self, generator: torch.Generator) -> "TiNeuVox":
         """Zero grid; every network drawn from ``generator`` with the
@@ -266,16 +276,27 @@ def time_feature(model: TiNeuVox, times_sel):
     return model.timenet(t_emb)
 
 
-def _views_emb(model: TiNeuVox, viewdirs):
+def _views_emb(model: TiNeuVox, viewdirs, cam_sel=None):
+    """The colour head's view input: the view encoding and, with
+    ``add_cam``, ``camnet`` of the encoded camera ids ``cam_sel [N, 1]``
+    beside it; None with ``no_view_dir``."""
     cfg = model.cfg
-    if cfg.add_cam:
-        # camnet exists for checkpoints; no config or trainer of the JAX
-        # package feeds it camera ids
-        raise NotImplementedError("add_cam: camera-id conditioning")
     if cfg.no_view_dir:
         return None
-    return encoding.poc_fre(viewdirs, encoding.poc_freqs(cfg.viewbase_pe,
-                                                         viewdirs.device))
+    dev = viewdirs.device
+    v_emb = encoding.poc_fre(viewdirs, encoding.poc_freqs(cfg.viewbase_pe,
+                                                          dev))
+    if cfg.add_cam:
+        if cam_sel is None:
+            # the JAX package fails inside poc_fre here; no trainer or
+            # renderer of either package passes camera ids
+            raise ValueError("add_cam: the colour head takes camnet's "
+                             "features of the camera ids, so forward needs "
+                             "cam_sel [N, 1]")
+        cam_emb = encoding.poc_fre(cam_sel.float(), encoding.poc_freqs(
+            cfg.timebase_pe, dev))
+        v_emb = torch.cat([v_emb, model.camnet(cam_emb)], -1)
+    return v_emb
 
 
 def _heads(model: TiNeuVox, h, views, interval):
@@ -306,13 +327,14 @@ def _active_pipeline(model: TiNeuVox, pts_act, tfeat_act, views_act,
 
 def forward(model: TiNeuVox, rays_o, rays_d, viewdirs, times_sel, near, far,
             stepsize, bg, n_max_steps: int, occ_grid=None,
-            active_budget=None) -> Dict[str, Any]:
+            active_budget=None, cam_sel=None) -> Dict[str, Any]:
     """Volume render rays ``[N, 3]`` at times ``[N, 1]`` with
     ``n_max_steps`` samples a ray (``cfg.max_steps(stepsize)``).
 
     ``occ_grid`` [X', Y', Z'] bool prunes samples in empty cells;
     ``active_budget`` runs only that many valid samples through the
-    networks. Per-sample outputs are [N, S]."""
+    networks; ``cam_sel`` [N, 1], the camera ids, is needed with
+    ``add_cam``. Per-sample outputs are [N, S]."""
     cfg = model.cfg
     N = rays_o.shape[0]
     dev = rays_o.device
@@ -384,7 +406,7 @@ def forward(model: TiNeuVox, rays_o, rays_d, viewdirs, times_sel, near, far,
         ray_of = _spread_unfilled(src // S, filled, N)
         tfeat_act = tfeat[ray_of]
 
-    v_emb = _views_emb(model, viewdirs)
+    v_emb = _views_emb(model, viewdirs, cam_sel)
     if active_budget is not None:
         views_act = None if v_emb is None else v_emb[ray_of]
         alpha_act, rgb_act, pts_delta = _active_pipeline(
@@ -431,6 +453,39 @@ def forward(model: TiNeuVox, rays_o, rays_d, viewdirs, times_sel, near, far,
     return out
 
 
+def ray_density(model: TiNeuVox, rays_o, rays_d, times_sel, near, far,
+                stepsize, n_max_steps: int) -> Dict[str, Any]:
+    """Density-only render of rays ``[N, 3]`` at times ``[N, 1]`` (the
+    reference ``TiNeuVox.ray_density``): the grid read at the raw sample
+    points, without the deformation, and no colour head -> ``weights``,
+    ``s``, ``n_max``, ``valid`` ([N, S] where per sample)."""
+    cfg = model.cfg
+    N = rays_o.shape[0]
+    S = n_max_steps
+    tfeat = time_feature(model, times_sel)
+    lo, hi = _bbox(cfg, rays_o.device)
+    samples = sample_pts_on_rays(rays_o, rays_d, lo, hi, near, far,
+                                 stepsize * cfg.voxel_size, S)
+    tfeat_b = tfeat[:, None, :].expand(N, S, tfeat.shape[-1])
+    h, _ = query_density_features(model, samples.pts, tfeat_b,
+                                  canonical=True)
+    density = model.densitynet(h)[..., 0]
+    alpha = raw2alpha(density, cfg.act_shift,
+                      stepsize * cfg.voxel_size_ratio)
+    valid = samples.valid
+    thres = cfg.fast_color_thres
+    if thres > 0:
+        valid = valid & (alpha > thres)
+    weights, _ = alpha2weights(alpha, valid)
+    if thres > 0:
+        weights = torch.where(weights > thres, weights,
+                              torch.zeros_like(weights))
+    n_samples_global = cfg.n_samples(stepsize)
+    return {"weights": weights,
+            "s": (samples.step_id.float() + 0.5) / n_samples_global,
+            "n_max": n_samples_global, "valid": valid}
+
+
 # --------------------------------------------------------------------------
 # dense grid evaluation, progressive scaling, TV
 # --------------------------------------------------------------------------
@@ -463,6 +518,11 @@ def eval_alpha_volume(model: TiNeuVox, grid_xyz, time_sel, stepsize,
                                            device=dev))
     interval = stepsize * cfg.voxel_size_ratio
     ve = None
+    if want_features and cfg.add_cam and not cfg.no_view_dir:
+        # the colour head takes camera ids that a point of the grid has
+        # not; the JAX package fails on the head's shape here
+        raise ValueError("add_cam: eval_alpha_volume has no camera ids for "
+                         "the colour head")
     if want_features and not cfg.no_view_dir:
         vd = torch.as_tensor(np.zeros(3, np.float32) if viewdir is None
                              else np.asarray(viewdir, np.float32),

@@ -31,3 +31,10 @@ def raw2alpha(density: torch.Tensor, shift: float,
     """alpha = 1 - (1 + exp(density + shift)) ** (-interval); d/d density
     is ``min(e, 1e10) * (1 + e) ** (-interval - 1) * interval``."""
     return _Raw2Alpha.apply(density, float(shift), float(interval))
+
+
+def activate_density(density: torch.Tensor, interval: float,
+                     act_shift: float) -> torch.Tensor:
+    """Density -> alpha as the reference ``TiNeuVox.activate_density``:
+    ``raw2alpha(density, act_shift, interval)``."""
+    return raw2alpha(density, act_shift, interval)

@@ -20,3 +20,8 @@ def poc_fre(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     """
     emb = (x[..., None] * freqs).reshape(*x.shape[:-1], -1)
     return torch.cat([x, torch.sin(emb), torch.cos(emb)], dim=-1)
+
+
+def poc_dim(c: int, n_freqs: int) -> int:
+    """Output channel count of ``poc_fre`` for input dim ``c``."""
+    return c + 2 * c * n_freqs

@@ -203,3 +203,24 @@ def total_variation_grad(grid: torch.Tensor, weight: float, mask=None):
     if mask is not None:
         g = torch.where(mask[..., None], g, torch.zeros_like(g))
     return g
+
+
+def total_variation(grid: torch.Tensor, mask=None) -> torch.Tensor:
+    """The clamped-6-neighbour TV as a loss whose gradient is
+    ``total_variation_grad``'s clamped differences: over the three forward
+    differences d, ``phi(d) = d^2 / 2`` for |d| <= 1, else ``|d| - 1/2``,
+    summed and divided by the voxel count. ``mask [X, Y, Z]``: only edges
+    with an active end count."""
+    def phi(d):
+        ad = d.abs()
+        return torch.where(ad <= 1.0, 0.5 * d * d, ad - 0.5)
+
+    total = 0.0
+    for axis in range(3):
+        p = phi(torch.diff(grid, dim=axis))
+        if mask is not None:
+            n = grid.shape[axis]
+            m = mask.narrow(axis, 0, n - 1) | mask.narrow(axis, 1, n - 1)
+            p = torch.where(m[..., None], p, torch.zeros_like(p))
+        total = total + p.sum()
+    return total / (grid.shape[0] * grid.shape[1] * grid.shape[2])

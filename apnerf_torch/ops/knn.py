@@ -66,3 +66,26 @@ def knn_count(queries: torch.Tensor, point_tables: Dict[str, torch.Tensor],
     """Per-query count of points with d2 <= radius2 (kernel K2) -> [M]."""
     from ..kernels.knn_cells import knn_count as _count
     return _count(queries, point_tables, float(radius2))
+
+
+def nn1(queries: torch.Tensor, points: torch.Tensor):
+    """Nearest point of each query -> (d2 [M], idx [M]): ``knn`` at k = 1,
+    so kernel K1 on a CUDA tensor (the chamfer building block)."""
+    d2, idx = knn(queries, points, k=1)
+    return d2[:, 0], idx[:, 0]
+
+
+def chamfer(pcd1: torch.Tensor, pcd2: torch.Tensor):
+    """Both directions' squared nearest distances, raw (the reference's
+    ``get_chamfer_loss(..., get_raw=True)``) -> (d [N1], d [N2])."""
+    d1, _ = nn1(pcd1, pcd2)
+    d2, _ = nn1(pcd2, pcd1)
+    return d1, d2
+
+
+def batch_chamfer(pcd1: torch.Tensor, pcd2: torch.Tensor) -> torch.Tensor:
+    """Symmetric chamfer loss of ``pcd1 [B, N, D]`` and ``pcd2 [B, M, D]``
+    over dense pairwise squared distances (D = 2 or 3): the mean nearest
+    distance each way, summed."""
+    d = ((pcd1[:, :, None, :] - pcd2[:, None, :, :]) ** 2).sum(-1)
+    return d.amin(2).mean() + d.amin(1).mean()

@@ -131,6 +131,26 @@ def sample_pts_on_rays(rays_o, rays_d, xyz_min, xyz_max, near, far,
                       n_steps=n_steps)
 
 
+def sample_ndc_pts_on_rays(rays_o, rays_d, xyz_min, xyz_max,
+                           n_samples: int) -> RaySamples:
+    """Fixed-count equidistant sampling of NDC rays, ``o + d t`` at
+    ``n_samples`` values of t from 0 to 1 (the reference
+    ``sample_ndc_pts_on_rays``); samples outside the bbox are masked out.
+    No shipped config sets ``ndc``."""
+    dev = rays_o.device
+    lo, hi = _tensor(xyz_min, dev), _tensor(xyz_max, dev)
+    t = torch.linspace(0.0, 1.0, n_samples, device=dev)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * t[None, :, None]
+    in_bbox = ((pts >= lo) & (pts <= hi)).all(-1)
+    N = rays_o.shape[0]
+    return RaySamples(
+        pts=pts, valid=in_bbox,
+        step_id=torch.arange(n_samples, dtype=torch.int32,
+                             device=dev).expand(in_bbox.shape),
+        t_min=torch.zeros(N, device=dev),
+        n_steps=torch.full((N,), n_samples, dtype=torch.int32, device=dev))
+
+
 def rays_hit_bbox(rays_o, rays_d, xyz_min, xyz_max, near, far):
     """Does any sample of the ray fall inside the scene bbox (reference
     ``TiNeuVox.get_mask``, lib/tineuvox.py:422-433)?"""

@@ -5,6 +5,11 @@ import math
 
 import torch
 
+# the nearest rotation (SVD orthonormalisation, det = +1) with its
+# closed-form gradient: kernel P1 on a CUDA tensor, the plain version on a
+# CPU tensor
+from ..kernels.procrustes import special_procrustes  # noqa: F401
+
 
 def rodrigues(rvec: torch.Tensor):
     """Axis-angle -> (R [..., 3, 3], theta [...]).
@@ -35,15 +40,6 @@ def rodrigues(rvec: torch.Tensor):
         z * z + (1. - z * z) * c,
     ], dim=-1).reshape(*axis.shape[:-1], 3, 3)
     return R, theta
-
-
-def special_procrustes(M: torch.Tensor) -> torch.Tensor:
-    """Nearest rotation matrix (SVD orthonormalisation, det = +1)."""
-    u, _, vt = torch.linalg.svd(M)
-    det = torch.linalg.det(u @ vt)
-    d = torch.cat([torch.ones(*M.shape[:-2], 2, dtype=M.dtype,
-                              device=M.device), det[..., None]], dim=-1)
-    return (u * d[..., None, :]) @ vt
 
 
 def rotmat_to_rotvec(R: torch.Tensor) -> torch.Tensor:

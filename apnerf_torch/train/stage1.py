@@ -10,9 +10,13 @@ mid-stage checkpoints with resume.
 
 ``cfg`` is duck-typed as the JAX package's config: ``.train_config``,
 ``.model_and_render`` and ``.data``, each a mapping with attribute access
-and ``.get``. Ray microbatching (``ray_microbatch`` > 1, or the JAX auto
-rule above 4096 rays) and the multi-device ``mesh`` are not ported and
-raise ``NotImplementedError``.
+and ``.get``. Ray microbatching follows the JAX package: ``ray_microbatch``
+0 (the default) splits a batch of more than 4096 rays into
+``microbatches(N_rand)`` equal parts, 1 keeps it whole, n > 1 splits it in
+n; each part takes its own forward and backward under the active budget
+of its own rays, the gradients are summed in fp32 and scaled by 1/n before
+the TV gradient and the one masked-Adam update. The multi-device ``mesh``
+is not ported and raises ``NotImplementedError``.
 
 On a CUDA device each training step is one replay of a captured CUDA
 graph (``make_graphed_step``), one graph per *segment* as the JAX package
@@ -62,6 +66,22 @@ def compute_bbox_by_cam_frustrm(HW, Ks, poses, i_train, img_to_cam, near,
         xyz_min = np.minimum(xyz_min, pts.reshape(-1, 3).min(0))
         xyz_max = np.maximum(xyz_max, pts.reshape(-1, 3).max(0))
     return xyz_min, xyz_max
+
+
+def microbatches(n_rand: int, ray_microbatch: int = 0) -> int:
+    """The number of ray microbatches a step of ``n_rand`` rays takes:
+    ``ray_microbatch``, or for 0 the JAX package's rule, ceil(n_rand /
+    4096) raised until it divides ``n_rand``. Raises ``ValueError`` when
+    the count does not divide ``n_rand``."""
+    n_micro = int(ray_microbatch)
+    if n_micro == 0:
+        n_micro = -(-n_rand // 4096)
+        while n_micro > 1 and n_rand % n_micro:
+            n_micro += 1
+    if n_micro < 1 or n_rand % n_micro:
+        raise ValueError(f"N_rand ({n_rand}) must divide by ray_microbatch "
+                         f"({n_micro})")
+    return n_micro
 
 
 def active_budget(n_rand: int, n_steps: int, occ_frac: float):
@@ -125,30 +145,60 @@ def make_loss_fn(model: tineuvox.TiNeuVox, cfg_train, Ks, poses, H, W,
 def make_step_body(model: tineuvox.TiNeuVox, cfg_train,
                    optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
                    inverse_y=False, flip_x=False, flip_y=False,
-                   active_budget=None):
+                   active_budget=None, n_micro: int = 1):
     """``body(batch, occ, tv_on, tv_dense) -> (loss, mse, grads)``: loss,
     backward, the TV gradient added to the feature gradient after the
     backward (the reference's ``feature_total_variation_add_grad``) when
     ``tv_on``, then the masked-Adam update of the step that
     ``optimizer.advance()`` counted; ``grads`` by parameter name, as the
-    update took them."""
+    update took them. With ``n_micro`` > 1 the batch's rays are cut into
+    ``n_micro`` equal consecutive parts (views), each with its own forward
+    and backward (``active_budget`` is then a part's); the gradients, loss
+    and mse are summed in fp32 in part order and scaled by 1 / n_micro, as
+    the JAX package's ``grad_fn`` accumulates them."""
     loss_fn = make_loss_fn(model, cfg_train, Ks, poses, H, W, near, far, bg,
                            inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y,
                            active_budget=active_budget)
     w_tv = float(cfg_train.get("weight_tv_feature", 0.0))
+    params = dict(model.named_parameters())
+
+    def loss_and_grads(batch, occ):
+        if n_micro == 1:
+            model.zero_grad(set_to_none=True)
+            loss, mse = loss_fn(batch, occ)
+            loss.backward()
+            return loss.detach(), mse.detach(), {
+                n: p.grad for n, p in model.named_parameters()}
+        n_rays = batch["rgb"].shape[0]
+        if n_rays % n_micro:
+            raise ValueError(f"N_rand ({n_rays}) must divide by "
+                             f"ray_microbatch ({n_micro})")
+        m = n_rays // n_micro
+        acc = {n: torch.zeros_like(p, dtype=torch.float32)
+               for n, p in params.items()}
+        loss_sum = mse_sum = 0.0
+        for i in range(n_micro):
+            part = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+            loss, mse = loss_fn(part, occ)
+            for (n, _), g in zip(params.items(), torch.autograd.grad(
+                    loss, list(params.values()), allow_unused=True)):
+                if g is not None:
+                    acc[n].add_(g)
+            loss_sum = loss_sum + loss.detach()
+            mse_sum = mse_sum + mse.detach()
+        inv = 1.0 / n_micro
+        return loss_sum * inv, mse_sum * inv, {n: g * inv
+                                               for n, g in acc.items()}
 
     def body(batch, occ, tv_on, tv_dense):
-        model.zero_grad(set_to_none=True)
-        loss, mse = loss_fn(batch, occ)
-        loss.backward()
-        grads = {n: p.grad for n, p in model.named_parameters()}
+        loss, mse, grads = loss_and_grads(batch, occ)
         if w_tv > 0 and tv_on:
             g = grads["feature"]
             g = torch.zeros_like(model.feature) if g is None else g
             grads["feature"] = g + tineuvox.feature_tv_grad(
                 model, w_tv / batch["rgb"].shape[0], g, tv_dense)
         optimizer.apply(grads)
-        return loss.detach(), mse.detach(), grads
+        return loss, mse, grads
 
     return body
 
@@ -156,13 +206,14 @@ def make_step_body(model: tineuvox.TiNeuVox, cfg_train,
 def make_train_step(model: tineuvox.TiNeuVox, cfg_train,
                     optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
                     inverse_y=False, flip_x=False, flip_y=False,
-                    active_budget=None):
+                    active_budget=None, n_micro: int = 1):
     """``step(batch, tv_on, occ=None, tv_dense=True) -> (loss, mse)``: one
     step of ``make_step_body`` run eagerly (the yardstick of
     ``make_graphed_step``)."""
     body = make_step_body(model, cfg_train, optimizer, Ks, poses, H, W,
                           near, far, bg, inverse_y=inverse_y, flip_x=flip_x,
-                          flip_y=flip_y, active_budget=active_budget)
+                          flip_y=flip_y, active_budget=active_budget,
+                          n_micro=n_micro)
 
     def step(batch, tv_on, occ=None, tv_dense=True):
         optimizer.advance()
@@ -189,7 +240,7 @@ def make_graphed_step(model: tineuvox.TiNeuVox, cfg_train,
                       optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
                       n_rand: int, inverse_y=False, flip_x=False,
                       flip_y=False, active_budget=None,
-                      occ_shape=None) -> GraphedStep:
+                      occ_shape=None, n_micro: int = 1) -> GraphedStep:
     """One segment's steps: ``step(batch, (tv_on, tv_dense)) -> (loss,
     mse, grads)`` of ``make_step_body`` as one CUDA-graph replay on a
     CUDA device (a graph per setting of the two flags; its first call is
@@ -198,10 +249,13 @@ def make_graphed_step(model: tineuvox.TiNeuVox, cfg_train,
     them into the static inputs and advances the optimizer. With
     ``occ_shape`` the step reads the occupancy grid from the static input
     ``step.inputs["occ"]``, which the caller refills in place. The
-    outputs are the graph's: the next call overwrites them."""
+    outputs are the graph's: the next call overwrites them. With
+    ``n_micro`` > 1 the microbatches are views of the static batch, and
+    their forwards and backwards are all in the one graph."""
     body = make_step_body(model, cfg_train, optimizer, Ks, poses, H, W,
                           near, far, bg, inverse_y=inverse_y, flip_x=flip_x,
-                          flip_y=flip_y, active_budget=active_budget)
+                          flip_y=flip_y, active_budget=active_budget,
+                          n_micro=n_micro)
     inputs = step_inputs(n_rand, occ_shape, Ks.device)
     batch = {k: v for k, v in inputs.items() if k != "occ"}
     occ = inputs.get("occ")
@@ -247,13 +301,8 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
     if mesh is not None:
         raise NotImplementedError("multi-device stage-1 training (mesh) is "
                                   "not ported")
-    # the JAX package splits a batch into ray microbatches when asked
-    # (ray_microbatch > 1) or, by default (0), above 4096 rays
-    n_micro = int(cfg.train_config.get("ray_microbatch", 0))
     n_rand = int(cfg.train_config["N_rand"])
-    if n_micro > 1 or (n_micro == 0 and n_rand > 4096):
-        raise NotImplementedError("ray microbatching is not ported: use "
-                                  "N_rand <= 4096 and ray_microbatch 0 or 1")
+    n_micro = microbatches(n_rand, cfg.train_config.get("ray_microbatch", 0))
     dev = resolve_device(device)
     cfg_model = cfg.model_and_render
     cfg_train = dict(cfg.train_config)
@@ -320,19 +369,25 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
         given)."""
         optimizer = optimizer or MaskedAdam(model, cfg_train)
         budget = None
+        if n_micro > 1:
+            print(f"stage1: ray microbatching x{n_micro} "
+                  f"({n_rand // n_micro} rays/microbatch, grads "
+                  "accumulated)")
         if occupancy_active:
             n_s = model.cfg.max_steps(stepsize)
-            budget, demanded = active_budget(n_rand, n_s, occ_frac)
+            budget, demanded = active_budget(n_rand // n_micro, n_s,
+                                             occ_frac)
+            per = f", per microbatch x{n_micro})" if n_micro > 1 else ")"
             print(f"stage1: budget audit — active budget {budget} of "
-                  f"{demanded} demanded ({n_rand} rays x {n_s} steps x "
-                  f"{occ_frac:g} active_fraction) — padding "
+                  f"{demanded} demanded ({n_rand // n_micro} rays x {n_s} "
+                  f"steps x {occ_frac:g} active_fraction{per} — padding "
                   f"{budget - demanded} "
                   f"({100 * (budget / max(demanded, 1) - 1):.1f}% over)")
         step = make_graphed_step(
             model, cfg_train, optimizer, Ks, poses, H, W, near, far, bg,
             n_rand, active_budget=budget,
             occ_shape=model.cfg.world_size if occupancy_active else None,
-            **flips)
+            n_micro=n_micro, **flips)
         return step, optimizer
 
     start_step = 0

@@ -49,7 +49,14 @@ and no result line is printed):
    shared-memory rule against the kernel's. Every kernel's time stands
    beside its bound: the larger of its bytes over the card's memory rate
    and its operations over the card's peak for their type; K4's and K6's
-   also beside the time of the WMMA kernels they replace.
+   also beside the time of the WMMA kernels they replace. K1 also as
+   ``ops.knn.nn1`` (k = 1, queries that are not the points, both lane
+   counts), bit-equal. P1 (special Procrustes, forward and backward) at
+   10^4 matrices of five kinds (rotations, two- and three-rotation blends,
+   random, reflections): R and dM against float64 beside the plain
+   version's (``torch.linalg.svd``) errors, its time queued and beside
+   ``torch.linalg.svd`` + ``det``, and whether ``torch.linalg.svd`` and P1
+   capture into a CUDA graph.
 4. train   -- stage 1 of the nerf family at full width (160^3 x 12 grid,
    defor_depth 5, net_width 128, 4096 rays a step) on a 6-view 400 x 400
    arm scene, ``scene_rep_reconstruction`` for ``TRAIN_STEPS`` steps, each
@@ -67,7 +74,10 @@ and no result line is printed):
    capture's ms, peak memory and host launch calls a step each way (a
    replayed step launches one graph and no kernel); ``fine_last.pkl``
    written, reloaded and giving the same alpha; ``fine_progress.pkl``
-   (model and Adam state) written for phase 7.
+   (model and Adam state) written for phase 7. Then a microbatched step
+   both ways the same way: ``MICRO_N_RAND`` rays, which the JAX package's
+   auto rule cuts in two, each half under its own active budget, both in
+   the one graph (peak memory each way).
 5. render  -- the bench scene of ``bench.py:build_model`` (10^4 points,
    24 joints, F = 128, K = 8, random weights from a seed) is saved and
    loaded as a checkpoint (K1 runs at load) and a 400 x 400 view is
@@ -83,7 +93,11 @@ and no result line is printed):
    eager frame's, ``FRAMES`` frames timed each way, the capture's ms, the
    peak memory each way and the host's launch calls of a frame each way
    (under the profiler; a graphed frame launches its graphs and no more
-   than one kernel).
+   than one kernel). Then the same model with ``avg_procrustes`` (P1 in
+   the frame graph), shared mode: a view through ``render_view``, both
+   ways, and against the plain-version render on the foreground (PSNR >=
+   ``PROCRUSTES_PSNR_MIN_DB``), beside the control render of the blended
+   frames.
 6. render views -- the same checkpoint through ``load_temporalpoints``
    (no device given: the card), ``points_render_config`` with
    ``fused_agg`` and ``make_points_renderer(render_weights=False)``, then
@@ -119,7 +133,10 @@ and no result line is printed):
    the graph; K4 against its plain version on
    the step's inputs under phase 3's relative gates, beside the control
    without its per-layer bf16 round; the step's gradients against the XLA
-   formulation's under ``K4_TRAIN_MEAN_REL_ERR``), then
+   formulation's under ``K4_TRAIN_MEAN_REL_ERR``), the same with
+   ``avg_procrustes`` (P1's forward and backward in the graph; one step's
+   blended frames through P1 against float64 as in phase 3, the step's
+   gradients against the plain versions' printed), then
    ``save_temporalpoints`` / ``load_temporalpoints`` and a 400 x 400
    ``render_view`` of the trained model with foreground (opacity over
    ``STAGE2_FG_ACC`` on at least half the training mask's share of the
@@ -142,7 +159,8 @@ and no result line is printed):
    the scene, a PNG decode, stage-1 and stage-2 ms/step (graph replays),
    the export, each invocation.
 9. a JSON line of the kernels (each kernel's launches summed over the
-   paths of phases 4-8, and by path), the nvidia-smi line, and last
+   paths of phases 4-8, and by path: P1's on the avg_procrustes view and
+   steps), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -199,6 +217,12 @@ KERNELS = [  # name, source, TPU kernel it replaces (pl.pallas_call line)
     ("scatter", "apnerf_torch/csrc/scatter.cu",
      "apnerf/kernels/scatter_pallas.py:213"),
     ("agg", "apnerf_torch/csrc/agg.cu", "apnerf/kernels/agg_pallas.py:230"),
+    # P1 replaces no TPU kernel: the XLA SVD of special_procrustes
+    ("procrustes", "apnerf_torch/csrc/procrustes.cu",
+     "apnerf/ops/rotations.py:47 (no pl.pallas_call: the XLA SVD)"),
+    ("procrustes_grad", "apnerf_torch/csrc/procrustes.cu",
+     "apnerf/ops/rotations.py:47 (no pl.pallas_call: the SVD's "
+     "derivative)"),
 ]
 RENDER_KERNELS = ("knn_brute", "knn_count", "knn_radius", "featmlp")
 # K6's gates, from readings on an NVIDIA H100 80GB HBM3, 700 W. The control
@@ -236,6 +260,20 @@ K2_EARLIER_MS = {7392: 0.755, 131072: 0.796}
 K3_EARLIER_MS = {8192: 0.573, 71680: 0.629}
 K1_EARLIER_MS = 0.448
 K5_EARLIER_MS = {161: 0.881, 81: 0.349, 41: 1.132}
+# Phase 5's avg_procrustes view against the plain-version render on the
+# foreground: P1's R and torch.linalg.svd's differ by fp32 rounding, which
+# the 2^9-frequency position encoding of the neighbours' offsets carries
+# into the image. Read on an NVIDIA H100 80GB HBM3, 700 W: 115.55 dB,
+# against the control's (the render of the blended frames) 65.26 dB; the
+# gate is near their midpoint.
+PROCRUSTES_PSNR_MIN_DB = 90.0
+# Phase 7 holds P1 on the avg_procrustes step's own blended frames as
+# phase 3 holds it. One step's gradients through P1 against the plain
+# versions' are printed only: the step's loss is discontinuous in the
+# warped positions (the pass budget's truncation, the kth radius), and the
+# two SVDs' fp32 rounding of R moved it by 1e-6 in one run and 0.35% in
+# the next, as much as dropping avg_procrustes does (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md).
 N_VIEWS = 3
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
 # memory bytes/s, bf16 tensor-core and fp32 non-tensor-core FLOP/s. A
@@ -272,6 +310,9 @@ TRAIN_REFRESH = 8
 TRAJ_STEPS = 10
 TRAJ_GAP_MULT = 10.0
 BOTH_WAYS_STEPS = 20
+# Phase 4 also holds a microbatched step both ways: at this many rays the
+# JAX package's auto rule (stage1.microbatches) cuts a batch in two.
+MICRO_N_RAND = 8192
 # Phase 7 (stage 2), from readings on an NVIDIA H100 80GB HBM3, 700 W.
 # EXPORT_STEPS: the stage-1 steps after phase 4's at which the export
 # brackets canonical_pcd_num at the nerf family's 0.05 thresholds: the
@@ -519,8 +560,11 @@ def plain_kernels(featmlp=None, scatter=None, agg=None):
     ``scatter`` / ``agg`` replace K4's / K5's / K6's plain version (the
     controls)."""
     from apnerf_torch.kernels import agg as ag, featmlp as fm, \
-        knn_brute as kb, knn_cells as kc, scatter as sc
+        knn_brute as kb, knn_cells as kc, procrustes as pk, scatter as sc
     with mock.patch.object(kb, "knn_brute_cuda", kb.knn_brute_plain), \
+            mock.patch.object(pk, "procrustes_cuda", pk.procrustes_plain), \
+            mock.patch.object(pk, "procrustes_grad_cuda",
+                              pk.procrustes_grad_plain), \
             mock.patch.object(ag, "fused_subgroup_agg_cuda",
                               agg or ag.fused_subgroup_agg_plain), \
             mock.patch.object(kc, "knn_count_cuda",
@@ -642,6 +686,187 @@ def phase_kernels(torch, pcd, report):
     phase_agg(torch, report, layers, g)
     phase_chain_shapes(torch, g)
     phase_scatter(torch, report)
+    phase_procrustes(torch, report)
+
+
+# P1 (special Procrustes). Its inputs: 10^4 matrices, 2,000 each of exact
+# rotations (singular values 1, 1, 1), blends of two rotations (1, c, c),
+# of three, random matrices and reflections (det < 0). R is held where
+# s2 + d s3 >= P1_MIN_COND (nearer a rank-deficient reflection R is
+# ill-conditioned by 1 / (s2 + d s3) in any fp32 SVD), against the polar
+# factor in float64, the kernel's error beside the plain version's
+# (torch.linalg.svd); the gradient against the closed form in float64 on
+# the float64 factors, each matrix's error relative to max(1, its max
+# |dM|). The gates are ceilings over the plain version's own errors,
+# which the kernel must not exceed by more than P1_ERR_MULT.
+P1_COUNT = 10000
+P1_MIN_COND = 1e-3
+P1_ERR_MULT = 4.0
+# the operations of one matrix, at most (a Jacobi rotation skipped where
+# two columns are already orthogonal does fewer): 18 rotations of ~64
+# flops, the sort, 3 Givens rotations of ~42 and R's 27 FMAs; the
+# backward's four 3 x 3 products and K
+P1_FWD_FLOP = 1350
+P1_BWD_FLOP = 240
+
+
+def procrustes_inputs(n=P1_COUNT, seed=3):
+    """``n`` float32 3 x 3 matrices in five equal kinds (rotations, two-
+    and three-rotation blends, random, reflections), numpy."""
+    rng = np.random.default_rng(seed)
+    k = n // 5
+
+    def rotations():
+        axis = rng.normal(size=(k, 3))
+        axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+        th = rng.uniform(0.0, np.pi, k)[:, None, None]
+        s = np.zeros((k, 3, 3))
+        s[:, 0, 1], s[:, 0, 2], s[:, 1, 2] = -axis[:, 2], axis[:, 1], \
+            -axis[:, 0]
+        s = s - s.transpose(0, 2, 1)
+        return np.eye(3) + np.sin(th) * s + (1 - np.cos(th)) * (s @ s)
+
+    r0, r1, r2 = rotations(), rotations(), rotations()
+    w = rng.dirichlet([1.0, 1.0, 1.0], k)[:, :, None, None]
+    m = np.concatenate([r0, 0.5 * r0 + 0.5 * r1,
+                        w[:, 0] * r0 + w[:, 1] * r1 + w[:, 2] * r2,
+                        rng.normal(size=(k, 3, 3)),
+                        -r1 + 0.3 * rng.normal(size=(k, 3, 3))])
+    return m.astype(np.float32), rng.normal(size=m.shape).astype(np.float32)
+
+
+def polar64(m):
+    """The JAX function's R, in float64, and its s2 + d s3; numpy."""
+    u, s, vt = np.linalg.svd(m.astype(np.float64))
+    d = np.linalg.det(u @ vt)
+    ones = np.ones_like(d)
+    return (u * np.stack([ones, ones, d], -1)[:, None, :]) @ vt, \
+        s[:, 1] + d * s[:, 2]
+
+
+def grad64(m, g):
+    """The closed-form gradient of <R, G> in float64 on the float64
+    factors; numpy."""
+    u, s, vt = np.linalg.svd(m.astype(np.float64))
+    d = np.linalg.det(u @ vt)
+    u[:, :, 2] *= d[:, None]
+    s = s * np.stack([np.ones_like(d), np.ones_like(d), d], -1)
+    v = vt.transpose(0, 2, 1)
+    a = u.transpose(0, 2, 1) @ g.astype(np.float64) @ v
+    with np.errstate(divide="ignore", invalid="ignore"):
+        kk = (a - a.transpose(0, 2, 1)) / (s[:, :, None] + s[:, None, :])
+    kk[:, [0, 1, 2], [0, 1, 2]] = 0.0
+    return u @ kk @ v.transpose(0, 2, 1)
+
+
+def capture_ok(torch, fn):
+    """Whether ``fn`` captures into a CUDA graph (after a warm-up on a side
+    stream): (True, "") or (False, the error's first line)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        return True, ""
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return False, f"{type(e).__name__}: {str(e).splitlines()[0]}"
+
+
+def procrustes_errors(torch, m, g):
+    """P1 and its plain version on the matrices ``m`` with the cotangent
+    ``g`` (numpy [n, 3, 3]), against float64: R's max abs error where s2 +
+    d s3 >= P1_MIN_COND, each way, and dM's relative to max(1, max |dM|)
+    a matrix; kernel vs plain; det R and R R^T; finiteness."""
+    from apnerf_torch.kernels import procrustes as pk
+    M = torch.tensor(m, device=DEVICE)
+    G = torch.tensor(g, device=DEVICE)
+    R, U, s, V = pk.procrustes_cuda(M)
+    Rp, Up, sp, Vp = pk.procrustes_plain(M)
+    dM = pk.procrustes_grad_cuda(G, U, s, V)
+    dMp = pk.procrustes_grad_plain(G, Up, sp, Vp)
+    torch.cuda.synchronize()
+    R64, cond = polar64(m)
+    keep = cond >= P1_MIN_COND
+    g64 = grad64(m, g)
+    scale = np.maximum(1.0, np.abs(g64).max((1, 2)))[:, None, None]
+    rk, rp = R.cpu().numpy(), Rp.cpu().numpy()
+    gk, gp = dM.cpu().numpy(), dMp.cpu().numpy()
+    with np.errstate(invalid="ignore"):
+        gerr_k = float((np.abs(gk - g64) / scale)[keep].max())
+        gerr_p = float((np.abs(gp - g64) / scale)[keep].max())
+    det = np.linalg.det(rk.astype(np.float64))
+    return dict(
+        n=len(m), left=int((~keep).sum()),
+        err_k=float(np.abs(rk - R64)[keep].max()),
+        err_p=float(np.abs(rp - R64)[keep].max()),
+        kp=float(np.abs(rk - rp)[keep].max()), gerr_k=gerr_k, gerr_p=gerr_p,
+        gkp=float(np.abs(gk - gp)[keep].max()),
+        det=(float(det.min()), float(det.max())),
+        orth=float(np.abs(rk @ rk.transpose(0, 2, 1) - np.eye(3)).max()),
+        finite=bool(np.isfinite(rk).all() and np.isfinite(gk).all()))
+
+
+def procrustes_ok(e) -> bool:
+    """P1 within P1_ERR_MULT of the plain version's errors (plus 1e-6),
+    det R within 1e-5 of 1, and finite."""
+    return (e["finite"] and e["err_k"] <= P1_ERR_MULT * e["err_p"] + 1e-6
+            and e["gerr_k"] <= P1_ERR_MULT * e["gerr_p"] + 1e-6
+            and max(abs(d - 1.0) for d in e["det"]) < 1e-5)
+
+
+def procrustes_text(e) -> str:
+    return (f"{e['left']} of {e['n']} matrices with s2 + d s3 < "
+            f"{P1_MIN_COND:g} left out of the errors; R vs float64: kernel "
+            f"{e['err_k']:.3g}, plain (torch.linalg.svd) {e['err_p']:.3g} "
+            f"(gate {P1_ERR_MULT:g} x plain + 1e-6); kernel vs plain "
+            f"{e['kp']:.3g}; det R {e['det'][0]:.7f}-{e['det'][1]:.7f}, max "
+            f"|R R^T - I| {e['orth']:.3g}; dM vs the float64 closed form, "
+            f"relative to max(1, max |dM|) a matrix: kernel "
+            f"{e['gerr_k']:.3g}, plain {e['gerr_p']:.3g} (gate "
+            f"{P1_ERR_MULT:g} x plain + 1e-6), finite {e['finite']}")
+
+
+def phase_procrustes(torch, report):
+    """P1 at the main path's shape (10^4 frames, the bench cloud's count):
+    the forward and the backward against their plain versions and against
+    float64, both timed beside their bounds (bytes) and, for the forward,
+    beside ``torch.linalg.svd`` + ``det``; whether ``torch.linalg.svd`` and
+    P1 capture into a CUDA graph."""
+    from apnerf_torch.kernels import procrustes as pk
+    m, g = procrustes_inputs()
+    e = procrustes_errors(torch, m, g)
+    M = torch.tensor(m, device=DEVICE)
+    G = torch.tensor(g, device=DEVICE)
+    ms, (R, U, s, V) = cuda_ms(lambda: pk.procrustes_cuda(M))
+    pms, (_, Up, sp, Vp) = cuda_ms(lambda: pk.procrustes_plain(M))
+    lms, _ = cuda_ms(lambda: torch.linalg.det(torch.linalg.svd(M)[0]))
+    bms, dM = cuda_ms(lambda: pk.procrustes_grad_cuda(G, U, s, V))
+    bpms, _ = cuda_ms(lambda: pk.procrustes_grad_plain(G, Up, sp, Vp))
+    q_f = queued_ms(lambda: pk.procrustes_cuda(M))
+    q_b = queued_ms(lambda: pk.procrustes_grad_cuda(G, U, s, V))
+    p1_cap, p1_why = capture_ok(torch, lambda: pk.procrustes_grad_cuda(
+        G, *pk.procrustes_cuda(M)[1:]))
+    svd_cap, svd_why = capture_ok(torch, lambda: torch.linalg.svd(M))
+    n = m.shape[0]
+    report.add("procrustes", f"P={n}", ms, pms, e["kp"],
+               nbytes(M, R, U, s, V), P1_FWD_FLOP * n, "fp32", library_ms=lms)
+    report.add("procrustes_grad", f"P={n}", bms, bpms, e["gkp"],
+               nbytes(G, U, s, V, dM), P1_BWD_FLOP * n, "fp32")
+    print(f"kernel procrustes P={n}: queued {q_f:.4f} ms a call (20 back to "
+          f"back), backward queued {q_b:.4f} ms; max_abs_err over the "
+          f"matrices kept; {procrustes_text(e)}; torch.linalg.svd captures "
+          f"into a CUDA graph: {svd_cap} {svd_why}; P1 forward + backward "
+          f"capture: {p1_cap} {p1_why}", flush=True)
+    if not (procrustes_ok(e) and p1_cap):
+        raise AssertionError(f"procrustes: {e}, capture {p1_cap}")
 
 
 def print_front_end(name, shape, ms, earlier_ms, fn, pairs, other_pairs,
@@ -740,6 +965,22 @@ def phase_knn_brute(torch, p, tabs, report, pair_flop):
           f"beforehand) {alone_ms:.3f} ms, {alone_q:.3f} ms queued; the "
           f"plan (build_point_tables, the frames' tables) the rest",
           flush=True)
+    # nn1 (the chamfer helpers): K1 at k = 1 with queries that are not the
+    # points, at both lane counts, bit-equal to the plain version
+    from apnerf_torch.ops import knn as ops_knn
+    g1 = torch.Generator(device="cpu").manual_seed(21)
+    for M in (P, 40000):
+        src = torch.randint(0, P, (M,), generator=g1).to(p.device)
+        q = (p[src] + 0.02 * torch.randn(M, 3, generator=g1).to(p.device)
+             ).contiguous()
+        n_ms, (d1, i1) = cuda_ms(lambda: ops_knn.nn1(q, p))
+        pd1, pi1 = kb.knn_brute_plain(q, p, 1)
+        same = torch.equal(d1, pd1[:, 0]) and torch.equal(i1, pi1[:, 0])
+        print(f"kernel knn_brute nn1 M={M} P={P}: {n_ms:.3f} ms (plan "
+              f"included), bit-equal to the plain version {same}, "
+              f"{kc.topk_lanes(M)} lanes a query", flush=True)
+        if not same:
+            raise AssertionError(f"knn_brute nn1 differs at M={M}")
 
 
 def lattice_case(torch, step=2.0 ** -4, side=24, n_q=8000, seed=13):
@@ -1624,6 +1865,48 @@ def phase_train(torch, ckpt_dir):
               opt, GRAD_REL_ERR)
     del gstep, estep, opt
 
+    # ray microbatching: at MICRO_N_RAND rays the JAX package's auto rule
+    # cuts a batch in two, each half under its own active budget; both
+    # halves' forwards and backwards in the step's one graph
+    n_micro = stage1.microbatches(MICRO_N_RAND)
+    mb_budget, _ = stage1.active_budget(MICRO_N_RAND // n_micro,
+                                        mcfg.max_steps(stepsize), 0.25)
+    ct_mb = dict(ct, N_rand=MICRO_N_RAND)
+    opt = MaskedAdam(model, ct_mb)
+    mb_step = stage1.make_graphed_step(
+        model, ct_mb, opt, Ks, poses, H, W, data["near"], data["far"], 1.0,
+        MICRO_N_RAND, active_budget=mb_budget, occ_shape=mcfg.world_size,
+        n_micro=n_micro)
+    mb_step.inputs["occ"].copy_(occ)
+    mb_body = stage1.make_step_body(
+        model, ct_mb, opt, Ks, poses, H, W, data["near"], data["far"], 1.0,
+        active_budget=mb_budget, n_micro=n_micro)
+    gen = raydata.batch_index_generator(index.n, MICRO_N_RAND, seed=12)
+    mb_host = []
+    for _ in range(TRAJ_STEPS + BOTH_WAYS_STEPS):
+        rgb, mval, tval, cam, pix = index.gather(next(gen))
+        mb_host.append({"rgb": rgb, "mask": mval, "time": tval, "cam": cam,
+                        "pix": pix})
+
+    def mb_graphed(b):
+        loss, _, grads = mb_step(b, (False, True))
+        return loss, grads
+
+    def mb_eager(b):
+        # make_train_step's step, with the gradients it took
+        opt.advance()
+        loss, _, grads = mb_body(on_card(torch, b), occ, False, True)
+        return loss, grads
+
+    mb = both_ways(torch, f"train stage1 microbatched ({MICRO_N_RAND} rays "
+                   f"a step, {n_micro} microbatches of active budget "
+                   f"{mb_budget})", mb_step, mb_graphed, mb_eager, mb_host,
+                   model, opt, GRAD_REL_ERR)
+    if n_micro != 2 or not mb["launches"].get("scatter"):
+        raise AssertionError(f"train stage1 microbatched: {n_micro} "
+                             f"microbatches, launches {mb['launches']}")
+    del mb_step, mb_body, opt
+
     path = os.path.join(ckpt_dir, "fine_last.pkl")
     save_tineuvox(path, model)
     back = load_tineuvox(path, device=DEVICE)
@@ -1648,7 +1931,8 @@ def phase_train(torch, ckpt_dir):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
           f"launches {launches}; segments' captures {segments} ms; "
           f"fine_last.pkl reloads with equal alpha", flush=True)
-    return launches, model, data, stepsize
+    return ({"stage1 train": launches, "stage1 microbatched step":
+             mb["launches"]}, model, data, stepsize)
 
 
 # Phases 5 and 6 render every mode two ways: through the renderer's image
@@ -1882,6 +2166,92 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
           "the JAX bench's)", flush=True)
     return {k: launches["exact"][k] + launches["shared"][k]
             for k in RENDER_KERNELS}
+
+
+def phase_procrustes_render(torch, pcd, joints, bones, feat, ckpt_dir):
+    """Phase 5, avg_procrustes: phase 5's bench model in shared mode with
+    the blended frames replaced by their nearest rotations (P1 in the
+    frame graph): a view through ``render_view``, both ways, against the
+    render through the plain versions and against the render of the blends
+    (the control). Returns the view's launches."""
+    import dataclasses
+    from apnerf_torch import kernels
+    from apnerf_torch.data.bench_scene import bench_config, bench_heads
+    from apnerf_torch.models import temporal_points as tp
+    from apnerf_torch.render.render import render_image
+    from apnerf_torch.render.renderers import (chunk_loop,
+                                               make_points_renderer,
+                                               render_view)
+    from apnerf_torch.utils.checkpoint import (load_temporalpoints,
+                                               save_temporalpoints)
+    P, J, F = pcd.shape[0], joints.shape[0], feat.shape[1]
+    gen = torch.Generator().manual_seed(1)
+    cfg = bench_config(P, J, F, avg_procrustes=True)
+    model = tp.init_params(cfg, pcd, joints, bones, feat,
+                           np.full(P, 0.5, np.float32),
+                           np.full((P, 3), 0.5, np.float32),
+                           bench_heads(cfg, gen), generator=gen)
+    rng = np.random.default_rng(1)
+    rot = torch.tensor(np.concatenate(
+        [rng.normal(size=(J, 3)), 0.2 * np.ones((J, 1))], -1).astype(
+            np.float32), device=DEVICE)
+    rot2 = rot.clone()
+    rot2[:, 3] = -0.3
+    Kmat = [[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1]]
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 3.0
+    path = os.path.join(ckpt_dir, "temporalpoints_procrustes.pkl")
+    save_temporalpoints(path, model, {
+        "canonical_pcd": pcd, "skeleton_pcd": pcd[::40], "bones":
+        np.asarray(bones), "xyz_min": pcd.min(0) - 0.1,
+        "xyz_max": pcd.max(0) + 0.1, "frozen_view_dir": None,
+        "original_joints": joints})
+    m, state = load_temporalpoints(path, device=DEVICE)
+    if not m.cfg.avg_procrustes:
+        raise AssertionError("avg_procrustes did not survive the checkpoint")
+    kernels.reset_launches()
+    out = render_view(m, state, H, W, Kmat, c2w, rot_params=rot,
+                      chunk=CHUNK)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    idle = [k for k in ("knn_count", "knn_radius", "featmlp", "procrustes")
+            if not launches[k]]
+    if idle:
+        raise AssertionError(f"avg_procrustes render launched no {idle}")
+    rgb = out["rgb"].cpu().numpy()
+    acc = out["acc"].cpu().numpy()
+    fg = float((acc > 1e-3).mean())
+    if not (np.isfinite(rgb).all() and fg >= 0.01):
+        raise AssertionError(f"avg_procrustes render: foreground {fg:.4f}")
+    both = graph_vs_eager(
+        torch, "render avg_procrustes",
+        lambda: make_points_renderer(m, state, 0.5, 6.0, 1.0),
+        [(None, rot), (None, rot2)], Kmat, c2w, H, W, extra_keys=("acc",))
+
+    def eager():
+        fn = make_points_renderer(m, state, 0.5, 6.0, 1.0)(
+            0, None, rot_params=rot)
+        return render_image(chunk_loop(fn), Kmat, c2w, H, W, chunk=CHUNK,
+                            extra_keys=("acc",))
+    with plain_kernels():
+        ref = eager()
+    m.cfg = dataclasses.replace(m.cfg, avg_procrustes=False)
+    blend = eager()
+    m.cfg = dataclasses.replace(m.cfg, avg_procrustes=True)
+    fg_mask = (acc > 1e-3) | (ref["acc"] > 1e-3)
+    p_db = psnr(rgb, ref["rgb_marched"], fg_mask)
+    c_db = psnr(blend["rgb_marched"], ref["rgb_marched"], fg_mask)
+    print(f"render avg_procrustes: shared k-NN, {H}x{W}, graphed "
+          f"{both['graphed_ms']:.1f} ms/frame (eager {both['eager_ms']:.1f}"
+          f"), foreground {fg:.3f}; launches of the view (its frame graph's "
+          f"capture and replay) {launches}, of a frame {both['launches']}; "
+          f"kernels vs the plain versions {p_db:.2f} dB on the foreground "
+          f"(gate {PROCRUSTES_PSNR_MIN_DB:g}); control, the blended frames "
+          f"(no avg_procrustes) vs the same: {c_db:.2f} dB", flush=True)
+    if not c_db < PROCRUSTES_PSNR_MIN_DB <= p_db:
+        raise AssertionError(f"avg_procrustes render: {p_db:.2f} dB, control"
+                             f" {c_db:.2f} dB")
+    return launches
 
 
 def phase_views(torch, ckpt_dir, stage1_model, stage1_data, stepsize):
@@ -2501,6 +2871,41 @@ def phase_stage2(torch, data, ckpt_dir, stage1_cfg):
                              f", K4's backward {iso:.3g} (fp32 {iso_c:.3g})")
     del g4, gc, gb, gr, rk, rf, rb
 
+    # ---- avg_procrustes: P1's forward and backward in the graphed step
+    model.cfg = dataclasses.replace(mcfg, avg_procrustes=True)
+    ap_launches = stage2_both_ways("stage2 avg_procrustes")["launches"]
+    if not (ap_launches.get("procrustes")
+            and ap_launches.get("procrustes_grad")):
+        raise AssertionError(f"stage2 avg_procrustes: launches a step "
+                             f"{ap_launches}")
+    la, ga = stage2_grads(torch, model, loss_fn, batch)
+    with plain_kernels():
+        lp, gp = stage2_grads(torch, model, loss_fn, batch)
+    model.cfg = mcfg
+    l_off, go = stage2_grads(torch, model, loss_fn, batch)
+    a_max, a_mean = grad_gap(ga, gp)
+    o_max, o_mean = grad_gap(go, gp)
+    # P1 on the step's own input: the trained model's blended frames at
+    # the batch's time
+    with torch.no_grad():
+        fr = tp.warp(model, state, t=batch["t"])["frames"][:, :3, :3]
+    fr = fr.cpu().numpy()
+    e = procrustes_errors(torch, fr, np.random.default_rng(31).normal(
+        size=fr.shape).astype(np.float32))
+    print(f"stage2 avg_procrustes ({nvidia_smi_line()}): P1 on the step's "
+          f"blended frames: {procrustes_text(e)}. One step through P1 (and "
+          f"K2 / K3) vs the plain versions (torch.linalg.svd and the closed "
+          f"form), information only: loss {float(la):.6f} / {float(lp):.6f},"
+          f" worst leaf max abs err / max |grad| {a_max:.3g}, mean "
+          f"{a_mean:.3g}; the step without avg_procrustes (loss "
+          f"{float(l_off):.6f}) vs the same plain one: {o_max:.3g}, mean "
+          f"{o_mean:.3g}", flush=True)
+    if not (procrustes_ok(e) and np.isfinite(float(la)) and all(
+            bool(torch.isfinite(v).all()) for v in ga.values())):
+        raise AssertionError(f"stage2 avg_procrustes: P1 on the step's "
+                             f"frames {e}, loss {float(la)}")
+    del ga, gp, go
+
     # ---- save, load (K1), render one view
     path = os.path.join(ckpt_dir, "temporalpoints_last.pkl")
     save_temporalpoints(path, model, state,
@@ -2527,6 +2932,7 @@ def phase_stage2(torch, data, ckpt_dir, stage1_cfg):
           f"{float(acc.max()):.3f}, psnr vs training view 0 "
           f"{psnr(rgb, data['images'][0]):.2f} dB", flush=True)
     return {"stage2 train": launches, "stage2 featmlp_train": k4_launches,
+            "stage2 avg_procrustes": ap_launches,
             "stage2 load and render": load_launches}
 
 
@@ -2866,10 +3272,10 @@ def main() -> int:
     report = Report()
     phase_kernels(torch, pcd, report)
     with tempfile.TemporaryDirectory() as d:
-        by_path = {}
-        by_path["stage1 train"], s1_model, s1_data, stepsize = phase_train(
-            torch, d)
+        by_path, s1_model, s1_data, stepsize = phase_train(torch, d)
         by_path["render"] = phase_render(torch, pcd, joints, bones, feat, d)
+        by_path["render avg_procrustes"] = phase_procrustes_render(
+            torch, pcd, joints, bones, feat, d)
         by_path["render views"] = phase_views(torch, d, s1_model, s1_data,
                                               stepsize)
         del s1_model

@@ -76,7 +76,10 @@ def test_port_imports_no_jax(tmp_path, scene):
     fused_agg through render_viewpoints with every metric and its image
     function, repose, LPIPS),
     two stage-1 training steps on a tiny scene (the second on the
-    occupancy path), then the stage-2 half: the thinning library, the
+    occupancy path), the same with two ray microbatches, the backbone with
+    add_cam and ray_density, get_thetas, special_procrustes with its
+    gradient, the chamfer helpers, the NDC sampler, the TV loss,
+    activate_density, poc_dim and the camera, then the stage-2 half: the thinning library, the
     curriculum sampler, the export of that stage-1 model (skeletonizer
     included) and two train_pcd steps, then the command line (both stages
     of a micro config on a scene that ``generate_scene`` writes, without
@@ -151,6 +154,44 @@ def test_port_imports_no_jax(tmp_path, scene):
         "m1, c1, stats = scene_rep_reconstruction(\n"
         "    cfg, scene, n_iters=2, log_every=1, device='cpu')\n"
         "assert len(stats['loss']) == 2 and np.isfinite(stats['loss']).all()\n"
+        "import dataclasses\n"
+        "cfg.train_config.update(ray_microbatch=2)\n"
+        "_, _, st2 = scene_rep_reconstruction(\n"
+        "    cfg, scene, n_iters=2, log_every=1, device='cpu')\n"
+        "assert np.isfinite(st2['loss']).all()\n"
+        "cfg.train_config.update(ray_microbatch=0)\n"
+        "from apnerf_torch.models import point_warper, tineuvox\n"
+        "cam_model = tineuvox.init_model(dataclasses.replace(c1, add_cam=True),\n"
+        "                                torch.Generator().manual_seed(0), 'cpu')\n"
+        "o, d = torch.zeros(4, 3), torch.nn.functional.normalize(\n"
+        "    torch.rand(4, 3) - 0.5, dim=-1)\n"
+        "n_s = c1.max_steps(0.5)\n"
+        "res = tineuvox.forward(cam_model, o, d, d, torch.zeros(4, 1), 0.0,\n"
+        "                       1.0, 0.5, 1.0, n_s, cam_sel=torch.ones(4, 1))\n"
+        "assert torch.isfinite(res['rgb_marched']).all()\n"
+        "assert tineuvox.ray_density(cam_model, o, d, torch.zeros(4, 1), 0.0,\n"
+        "                            1.0, 0.5, n_s)['weights'].shape == (4, n_s)\n"
+        "w = model.forward_warp\n"
+        "assert point_warper.get_thetas(w, model.cfg.warp_cfg, torch.zeros(\n"
+        "    2, model.cfg.warp_cfg.t_dim)).shape == (2, model.cfg.n_joints)\n"
+        "from apnerf_torch.ops import activation, encoding, grid, knn, rays\n"
+        "from apnerf_torch.ops.rotations import special_procrustes\n"
+        "rot = torch.randn(5, 3, 3, requires_grad=True)\n"
+        "special_procrustes(rot).sum().backward()\n"
+        "assert torch.isfinite(rot.grad).all()\n"
+        "assert knn.chamfer(torch.rand(9, 3), torch.rand(7, 3))[0].shape \\\n"
+        "    == (9,)\n"
+        "assert knn.batch_chamfer(torch.rand(2, 5, 3), torch.rand(2, 4, 3)) >= 0\n"
+        "assert rays.sample_ndc_pts_on_rays(o, d, (-1,) * 3, (1,) * 3,\n"
+        "                                   5).pts.shape == (4, 5, 3)\n"
+        "assert grid.total_variation(torch.rand(3, 3, 3, 2)) >= 0\n"
+        "assert activation.activate_density(torch.zeros(2), 0.5, 0.0).shape \\\n"
+        "    == (2,)\n"
+        "assert encoding.poc_dim(3, 4) == 27\n"
+        "from apnerf_torch.utils.camera import Camera\n"
+        "cam = Camera(np.eye(3), np.zeros(3), 100.0, np.array([32.0, 24.0]),\n"
+        "             np.array([64, 48]))\n"
+        "assert cam.project(np.array([[0.0, 0.0, 3.0]])).shape == (1, 2)\n"
         "from apnerf_torch.kinematics import morphology, skeletonizer\n"
         "from apnerf_torch.train import export, stage2\n"
         "from apnerf_torch.utils import samplers\n"

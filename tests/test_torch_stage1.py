@@ -16,6 +16,7 @@ from apnerf.config.config import load_config
 from apnerf.data import rays as jrays
 from apnerf.models import tineuvox as jt
 from apnerf.ops import compaction as jc
+from apnerf.ops import nn as jnn
 from apnerf.train import masked_adam as jadam
 from apnerf.train import stage1 as js1
 from apnerf.utils import checkpoint as jck
@@ -241,13 +242,10 @@ def test_scene_rep_reconstruction_vs_jax(scene, monkeypatch, tmp_path):
     np.testing.assert_allclose(tstats["loss"], jstats["loss"], rtol=1e-4)
 
 
-@pytest.mark.parametrize("train,mesh", [({"N_rand": 8192}, None),
-                                        ({"ray_microbatch": 2}, None),
-                                        ({}, "mesh")])
+@pytest.mark.parametrize("train,mesh", [({}, "mesh")])
 def test_unported_paths_raise(train, mesh):
-    """Ray microbatching (asked for, or the JAX package's default above
-    4096 rays) and the multi-device mesh raise instead of running
-    something else."""
+    """The multi-device mesh raises instead of running something else
+    (ray microbatching is ported: tests/test_torch_microbatch.py)."""
     cfg = _tiny_cfg()
     cfg.train_config.update(train)
     with pytest.raises(NotImplementedError):
@@ -257,12 +255,18 @@ def test_unported_paths_raise(train, mesh):
 def test_fine_last_across_packages(tmp_path):
     """fine_last.pkl written by the JAX package loads in the port and the
     other way round; fine_progress.pkl's Adam state has the JAX pytree
-    structure."""
+    structure. The model has camnet (add_cam), so its colour head is
+    the reference's width (``rgb_views_ch``, wider than the JAX
+    ``init_params`` head, with which no add_cam forward runs)."""
     kw = dict(xyz_min=(-1.0, -1.5, -1.0), xyz_max=(1.0, 1.0, 1.2),
               num_voxels=9 ** 3, num_voxels_base=9 ** 3, voxel_dim=3,
               defor_depth=3, net_width=8, add_cam=True)
     jcfg = jt.TiNeuVoxConfig(**kw)
-    params = _tree_np(jt.init_params(jax.random.PRNGKey(5), jcfg))
+    params = jt.init_params(jax.random.PRNGKey(5), jcfg)
+    params["rgbnet"]["views_linears"] = jnn.init_mlp(
+        jax.random.PRNGKey(6), [8 + tt.TiNeuVoxConfig(**kw).rgb_views_ch,
+                                4, 3])
+    params = _tree_np(params)
     path = str(tmp_path / "fine_last.pkl")
     jck.save_checkpoint(path, jcfg.get_kwargs(), params)
     model = tck.load_tineuvox(path, device="cpu")
