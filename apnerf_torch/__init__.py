@@ -1,10 +1,11 @@
-"""PyTorch / CUDA port of apnerf: the stage-2 point-model render with its
-evaluation and repose entry points, and stage-1 training.
+"""PyTorch / CUDA port of apnerf: both training stages and the export, the
+render with its evaluation and repose entry points, the command line, and
+multi-device training and rendering.
 
 The JAX package ``apnerf`` stays the reference; this package mirrors its
 layout (``ops``, ``kernels``, ``models``, ``kinematics``, ``train``,
-``render``, ``utils``, ``cli``) and holds the hand-written Hopper kernels
-under ``csrc``. It imports no jax.
+``render``, ``parallel``, ``utils``, ``cli``) and holds the hand-written
+Hopper kernels under ``csrc``. It imports no jax.
 """
 import torch
 

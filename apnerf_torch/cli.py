@@ -12,8 +12,18 @@ stage 2 into ``<basedir>/<expname>``; the render branch evaluates the test
 views, renders the video path, reposes the point model and draws the
 canonical skeleton. The flags and their defaults are the JAX package's.
 Everything runs on the CUDA device: ``main(argv, device="cpu")`` is the
-CPU, for tests. Multi-device training and rendering (``--train_devices`` /
-``--render_devices`` above 1) are not ported and raise.
+CPU, for tests.
+
+Multi-device training and rendering: ``--train_devices N`` /
+``--render_devices N`` above 1 start N processes, one a card (``cuda:0`` ...
+``cuda:N-1``, an NCCL group on ``localhost``), each running this command
+with the mesh of ``parallel`` (the trainers' and renderers' ``mesh=``);
+with fewer than N cards the command raises before it loads data. Under
+``torchrun --nproc_per_node N`` it joins the group that is there instead.
+Rank 0 writes every file; the export runs on rank 0 and its artifacts go
+to the others. Where the two flags are both above 1 they must be equal; a
+phase without a mesh (training or rendering at one device) runs on rank 0
+alone.
 """
 from __future__ import annotations
 
@@ -22,15 +32,20 @@ import dataclasses
 import os
 import pickle
 import random
+import socket
+import sys
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import resolve_device
 from .config import dump_config, load_config
 from .data.load_data import KEPT_KEYS, load_data
 from .models import temporal_points as tp
+from .parallel import distributed
+from .parallel import mesh as pmesh
 from .render import render
 from .render.renderers import make_backbone_renderer, make_points_renderer
 from .utils import checkpoint as ckpt
@@ -72,8 +87,8 @@ def config_parser():
     p.add_argument("--basedir_append_suffix", type=str, default="")
     p.add_argument("--step_to_half", type=int, default=100000)
     p.add_argument("--export_bbox_and_cams_only", type=str, default="")
-    # multi-device rays-DP (no reference counterpart): not ported, > 1
-    # raises
+    # multi-device rays-DP (no reference counterpart): N > 1 ranks, one a
+    # card
     p.add_argument("--render_devices", type=int, default=0)
     p.add_argument("--train_devices", type=int, default=0)
     return p
@@ -99,30 +114,89 @@ def load_everything(args, cfg):
     bg_col = cfg.train_config.get("bg_col", None)
     data_dict = load_data(cfg.data, cfg, args.load_test_val, bg_col=bg_col)
     data_dict = {k: v for k, v in data_dict.items() if k in KEPT_KEYS}
-    if args.use_cache:
+    if args.use_cache and _rank() == 0:
         with open(cache_file, "wb") as f:
             pickle.dump(data_dict, f)
     return data_dict
 
 
-def _no_devices(n: int, what: str) -> None:
-    if n > 1:
-        raise NotImplementedError(f"multi-device {what} ({n} devices) is "
-                                  "not ported")
+def n_devices(args) -> int:
+    """The ranks a command line takes: the larger of ``--train_devices``
+    and ``--render_devices`` (1 for both at most 1); two counts above 1
+    must be equal."""
+    t, r = int(args.train_devices), int(args.render_devices)
+    if t > 1 and r > 1 and t != r:
+        raise ValueError(f"--train_devices {t} and --render_devices {r}: "
+                         "one process group serves both, so they must be "
+                         "equal")
+    return max(t, r, 1)
 
 
-def train(args, cfg, save_path, data_dict, stages=(1, 2), device=None):
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, world: int, port: int, argv) -> None:
+    """One spawned rank: card ``rank``, the NCCL group, then ``main``."""
+    distributed.initialize(world, rank,
+                           init_method=f"tcp://localhost:{port}",
+                           device="cuda")
+    try:
+        main(argv)
+    finally:
+        distributed.shutdown()
+
+
+def launch(argv, n: int, device=None) -> None:
+    """Run the command line ``argv`` on ``n`` spawned ranks, one a CUDA
+    card; raises (before anything is loaded) with fewer than ``n`` cards,
+    and when a rank fails."""
+    if device is not None and torch.device(device).type != "cuda":
+        raise RuntimeError(f"{n} devices: one process a CUDA card; on "
+                           f"{device} run the ranks under torchrun")
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_cards < n:
+        raise RuntimeError(f"{n} devices asked for; this host has "
+                           f"{n_cards} CUDA devices")
+    torch.multiprocessing.spawn(_rank_main, args=(n, _free_port(), argv),
+                                nprocs=n, join=True)
+
+
+def _mesh(n: int, what: str) -> Optional[pmesh.Mesh]:
+    if n <= 1:
+        return None
+    mesh = pmesh.make_mesh(n)
+    print(f"{what}: rays-DP over {mesh.world} ranks (rank {mesh.rank})")
+    return mesh
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def train(args, cfg, save_path, data_dict, stages=(1, 2), device=None,
+          mesh=None):
     """Stage 1 into ``fine_last.pkl`` (skipped when it exists), the export
-    into ``pcds/`` and stage 2 into ``temporalpoints_last.pkl``."""
+    into ``pcds/`` and stage 2 into ``temporalpoints_last.pkl``. ``mesh``:
+    both trainers over its ranks, each of which calls this; rank 0 writes
+    and exports."""
     from .train import stage1, stage2
     from .train.export import export_point_cloud
 
-    os.makedirs(save_path, exist_ok=True)
-    with open(os.path.join(save_path, "args.txt"), "w") as f:
-        for k in sorted(vars(args)):
-            f.write(f"{k} = {getattr(args, k)}\n")
-    dump_config(cfg, os.path.join(save_path, "config.py"))
-    _no_devices(getattr(args, "train_devices", 0), "training")
+    write = pmesh.writer(mesh)
+    if write:
+        os.makedirs(save_path, exist_ok=True)
+        with open(os.path.join(save_path, "args.txt"), "w") as f:
+            for k in sorted(vars(args)):
+                f.write(f"{k} = {getattr(args, k)}\n")
+        dump_config(cfg, os.path.join(save_path, "config.py"))
 
     ck1 = os.path.join(save_path, "fine_last.pkl")
     if 1 in stages:
@@ -133,8 +207,11 @@ def train(args, cfg, save_path, data_dict, stages=(1, 2), device=None):
                 cfg, data_dict, seed=args.seed, log_every=args.i_print,
                 step_to_half=args.step_to_half,
                 ckpt_path=os.path.join(save_path, "fine_progress.pkl"),
-                ckpt_every=args.ckpt_every or args.i_save, device=device)
-            ckpt.save_tineuvox(ck1, model)
+                ckpt_every=args.ckpt_every or args.i_save, device=device,
+                mesh=mesh)
+            if write:
+                ckpt.save_tineuvox(ck1, model)
+            pmesh.barrier(mesh)
 
     if 2 in stages:
         payload = ckpt.load_checkpoint(ck1)
@@ -145,18 +222,25 @@ def train(args, cfg, save_path, data_dict, stages=(1, 2), device=None):
         cidx = int(np.argmin(np.abs(unique_times
                                     - float(cfg.data.canonical_t))))
         pcd = cfg.pcd_model_and_render
-        art = export_point_cloud(
-            model, save_path, float(unique_times[cidx]),
-            float(cfg.model_and_render.stepsize),
-            pcd_density_threshold=float(pcd.pcd_density_threshold),
-            skeleton_density_threshold=float(pcd.skeleton_density_threshold),
-            bone_length=float(pcd.bone_length),
-            canonical_pcd_num=float(pcd.canonical_pcd_num),
-            # ZJU subjects can take the SMPL joint prior (reference
-            # run.py:1215-1231, opt-in through the config)
-            smpl_skeleton_datadir=(str(cfg.data.datadir)
-                                   if bool(pcd.get("smpl_skeleton", False))
-                                   else None))
+        art = [None]
+        if write:
+            art[0] = export_point_cloud(
+                model, save_path, float(unique_times[cidx]),
+                float(cfg.model_and_render.stepsize),
+                pcd_density_threshold=float(pcd.pcd_density_threshold),
+                skeleton_density_threshold=float(
+                    pcd.skeleton_density_threshold),
+                bone_length=float(pcd.bone_length),
+                canonical_pcd_num=float(pcd.canonical_pcd_num),
+                # ZJU subjects can take the SMPL joint prior (reference
+                # run.py:1215-1231, opt-in through the config)
+                smpl_skeleton_datadir=(str(cfg.data.datadir)
+                                       if bool(pcd.get("smpl_skeleton",
+                                                       False))
+                                       else None))
+        if mesh is not None:
+            dist.broadcast_object_list(art, 0, group=mesh.group)
+        art = art[0]
         del model
         scene_bbox = (np.asarray(mcfg.xyz_min), np.asarray(mcfg.xyz_max))
         tb_path = os.path.join("./logs/tensorboard",
@@ -167,17 +251,28 @@ def train(args, cfg, save_path, data_dict, stages=(1, 2), device=None):
             log_every=args.i_print, tensorboard_path=tb_path,
             i_save=args.i_save,
             ckpt_path=os.path.join(save_path, "temporalpoints_progress.pkl"),
-            ckpt_every=args.ckpt_every or args.i_save, device=device)
-        ckpt.save_temporalpoints(
-            os.path.join(save_path, "temporalpoints_last.pkl"), model2,
-            state, tineuvox_kwargs=mcfg.get_kwargs())
+            ckpt_every=args.ckpt_every or args.i_save, device=device,
+            mesh=mesh)
+        if write:
+            ckpt.save_temporalpoints(
+                os.path.join(save_path, "temporalpoints_last.pkl"), model2,
+                state, tineuvox_kwargs=mcfg.get_kwargs())
+        pmesh.barrier(mesh)
 
 
 def main(argv=None, device=None):
     """Run the command line ``argv`` (``None``: ``sys.argv``) on
-    ``device`` (``None``: the CUDA device; raises without one)."""
+    ``device`` (``None``: the CUDA device; raises without one). With
+    ``--train_devices`` / ``--render_devices`` above 1: on that many
+    spawned ranks (``launch``), or in the group of ``torchrun``."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = config_parser().parse_args(argv)
+    n = n_devices(args)
+    if n > 1 and not (dist.is_initialized() or "WORLD_SIZE" in os.environ):
+        return launch(argv, n, device)
     device = resolve_device(device)
+    if n > 1:
+        distributed.initialize(device=device)
     cfg = load_config(args.config)
     seed_everything(args.seed)
     data_dict = load_everything(args, cfg)
@@ -186,7 +281,11 @@ def main(argv=None, device=None):
     if not args.render_only:
         stages = [1] if args.first_stage_only else (
             [2] if args.second_stage_only else [1, 2])
-        train(args, cfg, save_path, data_dict, stages=stages, device=device)
+        mesh = _mesh(args.train_devices, "train")
+        if mesh is not None or _rank() == 0:
+            train(args, cfg, save_path, data_dict, stages=stages,
+                  device=device, mesh=mesh)
+        _barrier()
 
     if not (args.render_test or args.render_video or args.repose_pcd
             or args.visualise_canonical):
@@ -197,14 +296,18 @@ def main(argv=None, device=None):
     stepsize = float(cfg.model_and_render.stepsize)
     bg = float(cfg.train_config.bg_col)
     prune_info = None
-    _no_devices(args.render_devices, "rendering")
+    mesh = _mesh(args.render_devices, "render")
+    if mesh is None and _rank() != 0:
+        return
+    write = pmesh.writer(mesh)
 
     # repose is a point-model feature (reference run.py:1355-1396): the
     # stage-2 checkpoint is implied, with or without --render_pcd
     if not (args.render_pcd or args.repose_pcd):
         model = ckpt.load_tineuvox(os.path.join(save_path, "fine_last.pkl"),
                                    device)
-        renderer = make_backbone_renderer(model, stepsize, near, far, bg)
+        renderer = make_backbone_renderer(model, stepsize, near, far, bg,
+                                          mesh=mesh)
         ckpt_name = "fine_last"
     else:
         model, state = ckpt.load_temporalpoints(
@@ -221,7 +324,7 @@ def main(argv=None, device=None):
             model, state, near, far, bg,
             render_weights=renders_weights(model.cfg),
             render_pcd_direct=args.render_pcd_direct,
-            poses=data_dict["poses"], Ks=data_dict["Ks"])
+            poses=data_dict["poses"], Ks=data_dict["Ks"], mesh=mesh)
         ckpt_name = "temporalpoints_last"
 
     flags = dict(inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
@@ -229,8 +332,9 @@ def main(argv=None, device=None):
 
     if args.render_test:
         outdir = os.path.join(save_path, f"render_test_{ckpt_name}")
-        os.makedirs(outdir, exist_ok=True)
-        if prune_info is not None:
+        if write:
+            os.makedirs(outdir, exist_ok=True)
+        if prune_info is not None and write:
             with open(os.path.join(outdir, "threshold.txt"), "w") as f:
                 f.write(f"{args.degree_threshold}\n")
                 f.write(f"Static joints: "
@@ -245,36 +349,41 @@ def main(argv=None, device=None):
             savedir=outdir, eval_psnr=args.eval_psnr,
             eval_ssim=args.eval_ssim, eval_lpips_alex=args.eval_lpips_alex,
             eval_lpips_vgg=args.eval_lpips_vgg, device=device, **flags)
-        render.write_video(os.path.join(outdir, "test_video.rgb.mp4"),
-                           out["rgbs"])
+        if write:
+            render.write_video(os.path.join(outdir, "test_video.rgb.mp4"),
+                               out["rgbs"])
         if args.eval_psnr:
             print("Testing psnr", np.mean(out["psnrs"]), "(avg)")
 
     if args.render_video:
         outdir = os.path.join(save_path, f"render_video_{ckpt_name}_time")
-        os.makedirs(outdir, exist_ok=True)
+        if write:
+            os.makedirs(outdir, exist_ok=True)
         rp = data_dict["render_poses"]
         out = render.render_viewpoints(
             renderer, rp, np.repeat(data_dict["HW"][0][None], len(rp), 0),
             np.repeat(data_dict["Ks"][0][None], len(rp), 0),
             data_dict["render_times"], savedir=outdir,
             render_factor=args.render_video_factor, device=device, **flags)
-        render.write_video(os.path.join(outdir, "video.rgb.mp4"), out["rgbs"])
         d = out["depths"]
-        render.write_video(os.path.join(outdir, "video.disp.mp4"),
-                           d / max(d.max(), 1e-8))
-        if len(out["weights"]):
+        if write:
+            render.write_video(os.path.join(outdir, "video.rgb.mp4"),
+                               out["rgbs"])
+            render.write_video(os.path.join(outdir, "video.disp.mp4"),
+                               d / max(d.max(), 1e-8))
+        if len(out["weights"]) and write:
             render.write_video(os.path.join(outdir, "video.weights.mp4"),
                                out["weights"])
 
     if args.repose_pcd:
         repose(model, state, data_dict, near, far, bg, seed=args.seed,
-               savedir=os.path.join(save_path,
-                                    f"render_video_repose_{args.seed}"),
+               savedir=(os.path.join(save_path,
+                                     f"render_video_repose_{args.seed}")
+                        if write else None),
                render_factor=args.render_video_factor, device=device,
-               **flags)
+               mesh=mesh, **flags)
 
-    if args.visualise_canonical and args.render_pcd:
+    if args.visualise_canonical and args.render_pcd and write:
         from .kinematics.visualize import visualise_skeletonizer
         with torch.no_grad():
             weights = tp.get_weights(model, state).cpu().numpy()
@@ -333,14 +442,16 @@ def renders_weights(mcfg: tp.TemporalPointsConfig) -> bool:
 
 def repose(model, state, data_dict, near, far, bg, seed: int = 0,
            savedir: Optional[str] = None, render_factor: int = 0,
-           chunk: int = 8192, device=None, **flags) -> Dict[str, Any]:
+           chunk: int = 8192, device=None, mesh=None,
+           **flags) -> Dict[str, Any]:
     """Random repose animation: seeded random target rotations (row j is
     axis_xyz, angle of joint j; the root stays fixed), a 30-step ramp there
     and back, rendered from the first camera of ``data_dict`` through
     ``render_viewpoints`` on ``device`` (``None``: the CUDA device; raises
     without one), with LBS-weight images unless ``fused_agg``
     (``renders_weights``). Returns its result (60 frames); with
-    ``savedir`` the frames and videos are written there.
+    ``savedir`` the frames and videos are written there. ``mesh``: each
+    frame's chunks over its ranks (``make_points_renderer``).
 
     For a manual animation edit ``target``."""
     rng = np.random.default_rng(seed)
@@ -357,10 +468,12 @@ def repose(model, state, data_dict, near, far, bg, seed: int = 0,
     Ks = np.repeat(data_dict["Ks"][0][None], steps, 0)
     renderer = make_points_renderer(
         model, state, near, far, bg,
-        render_weights=renders_weights(model.cfg), poses=poses, Ks=Ks)
+        render_weights=renders_weights(model.cfg), poses=poses, Ks=Ks,
+        mesh=mesh)
 
     def make_view(i, t):
         return renderer(i, None, rot_params=rot_seq[i])
+    make_view.mesh = mesh
 
     out = render.render_viewpoints(
         make_view, poses, np.repeat(data_dict["HW"][0][None], steps, 0), Ks,

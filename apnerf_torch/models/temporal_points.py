@@ -55,6 +55,7 @@ from ..ops.marching import alpha2weights, composite
 from ..ops.nn import MLP, leaky_relu
 from ..ops.rays import ray_aabb, vector_norm
 from ..ops.rotations import rodrigues, rotmat_to_rotvec
+from ..parallel import mesh as pmesh
 from . import point_warper
 from .tineuvox import RGBNet
 
@@ -762,7 +763,8 @@ def _heads(model: TemporalPoints, h, views_emb):
 def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
                                q, src, act_ok, R, B, M_full, M_act,
                                query_radius, tables, act_demand,
-                               render_pcd_direct=False, render_weights=False):
+                               render_pcd_direct=False, render_weights=False,
+                               mesh=None):
     """Subgroup-shared k-NN aggregation (``knn_share > 1``): ``knn_cand``
     candidates per subgroup of ``share`` consecutive samples (kernel K3 on
     the subgroup midpoints), pass-compaction on the midpoint's kth
@@ -773,7 +775,8 @@ def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
     the module docstring) everything from the member-candidate distances
     to the weighted reduction is kernel K6; otherwise the ranking runs
     here and ``feat_net`` through ``_featnet_h`` (K4 or the XLA
-    formulation)."""
+    formulation). ``mesh``: the midpoints' k-NN and the passing subgroups'
+    work split over the ranks (``parallel.mesh.shard_rows``)."""
     cfg = model.cfg
     K = cfg.neighbours
     kc = int(cfg.knn_cand)
@@ -790,7 +793,9 @@ def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
     lo = torch.where(ok_g, qg, torch.full_like(qg, 1e9)).amin(1)
     hi = torch.where(ok_g, qg, torch.full_like(qg, -1e9)).amax(1)
     reps = torch.where(ok_g.any(1), 0.5 * (lo + hi), torch.full_like(lo, 2e9))
-    d2r, idx = knn(reps, None, kc, radius2=r2_sel, point_tables=tables)
+    d2r, idx = pmesh.shard_rows(
+        mesh, lambda r: knn(r, None, kc, radius2=r2_sel, point_tables=tables),
+        reps)
 
     # ---- subgroup pass-compaction (budget as pass_fraction)
     sub_ok = d2r[:, K - 1] <= r2_sel
@@ -815,6 +820,58 @@ def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
         src_sub = torch.where(sub_ok[:, None], src_g,
                               torch.full_like(src_g, M_full))
         ok_sub = act_g & sub_ok[:, None]
+    fused = (cfg.fused_agg and cfg.agg_bf16 and not srcs.has_pose_embedding
+             and not render_pcd_direct and not render_weights
+             and cfg.feat_depth == 4)
+    res = pmesh.shard_rows(
+        mesh, lambda *a: _shared_slots(model, state, srcs, viewdirs, R, B,
+                                       r2_sel, fused, render_pcd_direct,
+                                       render_weights, *a),
+        q_sub, src_sub, idx, d2r)
+
+    # ---- scatter back to [R, B], one row per subgroup (a subgroup's slots
+    # are consecutive and share-aligned in the flat R*B space)
+    sample_ok = ok_sub & (res.pop("kd2") <= query_radius)  # [S_pass, share]
+    n_rows = M_full // share
+    dst_row = torch.where(src_sub[:, 0] < M_full, src_sub[:, 0] // share,
+                          torch.full_like(src_sub[:, 0], n_rows))
+
+    def scatter(x):
+        x = torch.where(sample_ok.reshape(*sample_ok.shape,
+                                          *(1,) * (x.dim() - 2)),
+                        x, torch.zeros_like(x))
+        out = x.new_zeros((n_rows + 1, *x.shape[1:]))
+        out[dst_row] = x
+        return out[:n_rows].reshape(R, B, *x.shape[2:])
+
+    out = {
+        "alpha": scatter(res.pop("alpha")),
+        "rgb": scatter(res.pop("rgb")),
+        "valid": scatter(sample_ok),
+        "budget_audit": torch.stack([
+            act_demand, act_demand.new_full((), M_act), pass_demand,
+            act_demand.new_full((), S_pass * share)]),
+        "knn_path": "shared_fused" if fused else "shared",
+    }
+    # the direct render's alpha_direct / rgb_direct and lbs_w
+    for key, val in res.items():
+        out[key] = scatter(val)
+    return out
+
+
+def _shared_slots(model: TemporalPoints, state, srcs, viewdirs, R, B, r2_sel,
+                  fused, render_pcd_direct, render_weights, q_sub, src_sub,
+                  idx, d2r):
+    """The work of the passing subgroups ``q_sub`` [S, share, 3] (their
+    slots ``src_sub``, candidates ``idx`` / ``d2r`` [S, kc]): the members'
+    ranking and aggregation, ``feat_net`` and the heads -> ``alpha``,
+    ``rgb``, ``kd2`` (the member's kth distance) and the render's extras,
+    per member."""
+    cfg = model.cfg
+    K = cfg.neighbours
+    kc = int(cfg.knn_cand)
+    share = q_sub.shape[1]
+    dev = q_sub.device
     # slots beyond the midpoint's in-radius count carry (+inf, 0): mask
     # them out of every member's ranking
     cand_valid = d2r <= r2_sel                           # [S_pass, kc]
@@ -824,9 +881,6 @@ def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
     idxl = idx.long()
     geo, feat_k = srcs.gather(idxl)                     # [S, kc, 12 / F]
     rot = geo[..., 3:]                                   # [S, kc, 9]
-    fused = (cfg.fused_agg and cfg.agg_bf16 and not srcs.has_pose_embedding
-             and not render_pcd_direct and not render_weights
-             and cfg.feat_depth == 4)
     direct = {}
     if fused:
         if torch.is_grad_enabled():
@@ -898,52 +952,28 @@ def _aggregate_subgroup_shared(model: TemporalPoints, state, srcs, viewdirs,
             direct["rgb_direct"] = (w_dir_col[..., None]
                                     * c_all[idxl][:, None, :, :]).sum(2)
     alpha, rgb = _heads(model, h, views_emb)
-
-    # ---- scatter back to [R, B], one row per subgroup (a subgroup's slots
-    # are consecutive and share-aligned in the flat R*B space)
-    sample_ok = ok_sub & (kd2 <= query_radius)           # [S_pass, share]
-    n_rows = M_full // share
-    dst_row = torch.where(src_sub[:, 0] < M_full, src_sub[:, 0] // share,
-                          torch.full_like(src_sub[:, 0], n_rows))
-
-    def scatter(x):
-        x = torch.where(sample_ok.reshape(*sample_ok.shape,
-                                          *(1,) * (x.dim() - 2)),
-                        x, torch.zeros_like(x))
-        out = x.new_zeros((n_rows + 1, *x.shape[1:]))
-        out[dst_row] = x
-        return out[:n_rows].reshape(R, B, *x.shape[2:])
-
-    out = {
-        "alpha": scatter(alpha),
-        "rgb": scatter(rgb),
-        "valid": scatter(sample_ok),
-        "budget_audit": torch.stack([
-            act_demand, act_demand.new_full((), M_act), pass_demand,
-            act_demand.new_full((), S_pass * share)]),
-        "knn_path": "shared_fused" if fused else "shared",
-    }
-    for key, val in direct.items():
-        out[key] = scatter(val)
+    out = {"alpha": alpha, "rgb": rgb, "kd2": kd2, **direct}
     if render_weights and srcs.lbs is not None:
         lw = srcs.lbs[idxl]                              # [S, kc, J]
-        out["lbs_w"] = scatter((lw[:, None] * w[..., None]).sum(2))
+        out["lbs_w"] = (lw[:, None] * w[..., None]).sum(2)
     return out
 
 
 def _aggregate_exact(model: TemporalPoints, state, srcs, viewdirs, q, src,
                      act_ok, R, B, M_full, M_act, query_radius, tables,
                      act_demand, render_pcd_direct=False,
-                     render_weights=False):
+                     render_weights=False, mesh=None):
     """Exact two-phase k-NN aggregation: count within the radius (K2;
     ``count >= K`` is the reference's kth-neighbour cutoff), compact the
     survivors to the pass budget, select K (K3), aggregate (``_featnet_h``:
-    K4 or the XLA formulation)."""
+    K4 or the XLA formulation). ``mesh``: the count and the passing
+    slots' work split over the ranks (``parallel.mesh.shard_rows``)."""
     cfg = model.cfg
     K = cfg.neighbours
     dev = q.device
     M_slots = q.shape[0]
-    cnt = knn_count(q, tables, float(query_radius))
+    cnt = pmesh.shard_rows(
+        mesh, lambda qb: knn_count(qb, tables, float(query_radius)), q)
     nn_ok = (cnt >= K) & act_ok
 
     M_pass = int(M_act * cfg.pass_fraction)
@@ -961,6 +991,45 @@ def _aggregate_exact(model: TemporalPoints, state, srcs, viewdirs, q, src,
         src = torch.where(nn_ok, src, torch.full_like(src, M_full))
         n_slots = M_slots
 
+    res = pmesh.shard_rows(
+        mesh, lambda *a: _exact_slots(model, state, srcs, viewdirs, R, B,
+                                      query_radius, tables,
+                                      render_pcd_direct, render_weights, *a),
+        q, src)
+
+    # exact kth distance of the selected set decides the radius cutoff
+    dst = torch.where(pass_ok & (res.pop("kth") <= query_radius), src,
+                      torch.full_like(src, M_full))
+
+    def scatter(x):
+        out = x.new_zeros((M_full + 1, *x.shape[1:]))
+        out[dst] = x
+        return out[:M_full].reshape(R, B, *x.shape[1:])
+
+    out = {
+        "alpha": scatter(res.pop("alpha")),
+        "rgb": scatter(res.pop("rgb")),
+        "valid": scatter(torch.ones_like(pass_ok)),
+        "budget_audit": torch.stack([
+            act_demand, act_demand.new_full((), M_act), nn_ok.sum(),
+            act_demand.new_full((), n_slots)]),
+        "knn_path": "exact",
+    }
+    # the direct render's alpha_direct / rgb_direct and lbs_w
+    for key, val in res.items():
+        out[key] = scatter(val)
+    return out
+
+
+def _exact_slots(model: TemporalPoints, state, srcs, viewdirs, R, B,
+                 query_radius, tables, render_pcd_direct, render_weights, q,
+                 src):
+    """The work of the passing slots ``q`` [n, 3] (``src`` their flat
+    sample): K (K3), the aggregation, ``feat_net`` and the heads ->
+    ``alpha``, ``rgb``, ``kth`` (the kth distance) and the render's
+    extras, per slot."""
+    cfg = model.cfg
+    K = cfg.neighbours
     _, idx = knn(q, None, K, radius2=float(query_radius), point_tables=tables)
     views_emb = _views_emb(cfg, state, viewdirs,
                            torch.clamp(src // B, max=R - 1))
@@ -971,43 +1040,24 @@ def _aggregate_exact(model: TemporalPoints, state, srcs, viewdirs, q, src,
     w = 1.0 / (to_nn + cfg.eps)
     w = w / w.sum(-1, keepdim=True)
     rel_canon = torch.einsum("mkab,mkb->mka",
-                             geo[..., 3:].reshape(n_slots, K, 3, 3), rel_p)
+                             geo[..., 3:].reshape(q.shape[0], K, 3, 3), rel_p)
     h = _featnet_h(srcs, rel_canon, feat_k, w)
     alpha, rgb = _heads(model, h, views_emb)
-
-    # exact kth distance of the selected set decides the radius cutoff
-    dst = torch.where(pass_ok & (to_nn.amax(-1) <= query_radius), src,
-                      torch.full_like(src, M_full))
-
-    def scatter(x):
-        out = x.new_zeros((M_full + 1, *x.shape[1:]))
-        out[dst] = x
-        return out[:M_full].reshape(R, B, *x.shape[1:])
-
-    out = {
-        "alpha": scatter(alpha),
-        "rgb": scatter(rgb),
-        "valid": scatter(torch.ones_like(pass_ok)),
-        "budget_audit": torch.stack([
-            act_demand, act_demand.new_full((), M_act), nn_ok.sum(),
-            act_demand.new_full((), n_slots)]),
-        "knn_path": "exact",
-    }
+    out = {"alpha": alpha, "rgb": rgb, "kth": to_nn.amax(-1)}
     if render_pcd_direct:
         sig_all, a_all, c_all = srcs.direct()
         w_dir = torch.exp(-(to_nn ** 2) / (2.0 * sig_all[idxl] ** 2 + 1e-12))
         w_dir_col = w_dir / (w_dir.sum(-1, keepdim=True) + 1e-12)
-        out["alpha_direct"] = scatter((w_dir / K * a_all[idxl]).sum(-1))
-        out["rgb_direct"] = scatter((w_dir_col[..., None]
-                                     * c_all[idxl]).sum(1))
+        out["alpha_direct"] = (w_dir / K * a_all[idxl]).sum(-1)
+        out["rgb_direct"] = (w_dir_col[..., None] * c_all[idxl]).sum(1)
     if render_weights and srcs.lbs is not None:
-        out["lbs_w"] = scatter((srcs.lbs[idxl] * w[..., None]).sum(1))
+        out["lbs_w"] = (srcs.lbs[idxl] * w[..., None]).sum(1)
     return out
 
 
 def aggregate_pts(model: TemporalPoints, state, frame, rays_o, rays_d,
                   viewdirs, near, far, query_radius, render_pcd_direct=False,
-                  render_weights=False):
+                  render_weights=False, mesh=None):
     """k-NN feature aggregation along rays, from a ``prepare_frame``
     output -> per-sample [R, B(, .)] arrays, the valid mask, ``step_id``
     and ``knn_path``, which aggregation ran: "exact", "shared" or
@@ -1045,7 +1095,7 @@ def aggregate_pts(model: TemporalPoints, state, frame, rays_o, rays_d,
     out = agg(model, state, frame["point_sources"], viewdirs, q, src, act_ok,
               R, B, M_full, M_act, query_radius, tables, act_demand,
               render_pcd_direct=render_pcd_direct,
-              render_weights=render_weights)
+              render_weights=render_weights, mesh=mesh)
     out["step_id"] = step_id
     return out
 
@@ -1101,9 +1151,17 @@ def forward(model: TemporalPoints, state, rays_o, rays_d, viewdirs, t=None,
             rot_params=None, near=0.0, far=1e9, bg=1.0,
             query_radius: float = 0.01, render_depth: bool = False,
             render_weights: bool = False, render_pcd_direct: bool = False,
-            calc_min_max: bool = True, frame=None) -> Dict[str, Any]:
+            calc_min_max: bool = True, frame=None,
+            mesh=None) -> Dict[str, Any]:
     """warp -> aggregate -> composite for one chunk of rays. ``frame``: a
-    precomputed ``prepare_frame`` output shared across chunks."""
+    precomputed ``prepare_frame`` output shared across chunks.
+
+    ``mesh`` (``parallel.mesh``): every rank passes the whole batch, warps
+    the cloud and samples and compacts the rays whole, so every budget is
+    the global batch's and the surviving samples are the single-device
+    run's; the k-NN kernels, ``feat_net`` and the heads run on the rank's
+    block of the slots and are all-gathered before the scatter back
+    (``parallel.mesh.shard_rows``)."""
     cfg = model.cfg
     wout = frame if frame is not None else prepare_frame(
         model, state, t=t, rot_params=rot_params, query_radius=query_radius,
@@ -1111,7 +1169,7 @@ def forward(model: TemporalPoints, state, rays_o, rays_d, viewdirs, t=None,
     agg = aggregate_pts(model, state, wout, rays_o, rays_d, viewdirs, near,
                         far, query_radius,
                         render_pcd_direct=render_pcd_direct,
-                        render_weights=render_weights)
+                        render_weights=render_weights, mesh=mesh)
     thres = cfg.fast_color_thres
 
     def ray_weights(alpha):

@@ -32,6 +32,7 @@ from ..ops.marching import alpha2weights, composite
 from ..ops.nn import MLP, init_linear_
 from ..ops.rays import max_n_steps, ray_aabb, sample_pts_on_rays, \
     vector_norm
+from ..parallel import mesh as pmesh
 
 F32 = torch.float32
 
@@ -327,14 +328,21 @@ def _active_pipeline(model: TiNeuVox, pts_act, tfeat_act, views_act,
 
 def forward(model: TiNeuVox, rays_o, rays_d, viewdirs, times_sel, near, far,
             stepsize, bg, n_max_steps: int, occ_grid=None,
-            active_budget=None, cam_sel=None) -> Dict[str, Any]:
+            active_budget=None, cam_sel=None, mesh=None) -> Dict[str, Any]:
     """Volume render rays ``[N, 3]`` at times ``[N, 1]`` with
     ``n_max_steps`` samples a ray (``cfg.max_steps(stepsize)``).
 
     ``occ_grid`` [X', Y', Z'] bool prunes samples in empty cells;
     ``active_budget`` runs only that many valid samples through the
     networks; ``cam_sel`` [N, 1], the camera ids, is needed with
-    ``add_cam``. Per-sample outputs are [N, S]."""
+    ``add_cam``. Per-sample outputs are [N, S].
+
+    ``mesh`` (``parallel.mesh``): every rank passes the whole batch and
+    samples and compacts it whole, so the budget is the global batch's and
+    the surviving slots are the single-device run's; the deformation, the
+    grid gather and the heads run on the rank's block of the slots (of
+    the rays without a budget) and are all-gathered
+    (``parallel.mesh.shard_rows``)."""
     cfg = model.cfg
     N = rays_o.shape[0]
     dev = rays_o.device
@@ -409,8 +417,9 @@ def forward(model: TiNeuVox, rays_o, rays_d, viewdirs, times_sel, near, far,
     v_emb = _views_emb(model, viewdirs, cam_sel)
     if active_budget is not None:
         views_act = None if v_emb is None else v_emb[ray_of]
-        alpha_act, rgb_act, pts_delta = _active_pipeline(
-            model, pts_act, tfeat_act, views_act, filled, interval)
+        alpha_act, rgb_act, pts_delta = pmesh.shard_rows(
+            mesh, lambda *a: _active_pipeline(model, *a, interval),
+            pts_act, tfeat_act, views_act, filled)
         alpha = compaction.scatter_back(alpha_act, src, M_full).reshape(N, S)
         rgb = compaction.scatter_back(rgb_act, src, M_full).reshape(N, S, 3)
         valid = compaction.scatter_back(filled, src, M_full,
@@ -423,10 +432,15 @@ def forward(model: TiNeuVox, rays_o, rays_d, viewdirs, times_sel, near, far,
             valid = valid & compaction.occupancy_lookup_xyz(
                 occ_grid, lo, hi, samples.pts)
         tfeat_b = tfeat[:, None, :].expand(N, S, tfeat.shape[-1])
-        h, pts_delta = query_density_features(model, samples.pts, tfeat_b)
         views = (None if v_emb is None
                  else v_emb[:, None, :].expand(N, S, v_emb.shape[-1]))
-        alpha, rgb = _heads(model, h, views, interval)
+
+        def dense(pts, tf, vw):
+            h, delta = query_density_features(model, pts, tf)
+            return (*_heads(model, h, vw, interval), delta)
+
+        alpha, rgb, pts_delta = pmesh.shard_rows(mesh, dense, samples.pts,
+                                                 tfeat_b, views)
 
     thres = cfg.fast_color_thres
     if thres > 0:

@@ -17,6 +17,7 @@ import torch
 
 from .. import resolve_device
 from ..data.rays import pixels_to_rays
+from ..parallel import mesh as pmesh
 from ..utils import png
 from . import metrics
 
@@ -160,8 +161,13 @@ def render_viewpoints(render_chunk_for, render_poses, HW, Ks, test_times,
     Returns ``rgbs``, ``depths``, ``weights`` (with the skeleton overlaid
     where the renderer gave joints) and the per-view metric lists; with
     ``savedir`` also writes ``img_*.png``, ``weights_*.png`` and, when
-    PSNR was evaluated, ``results.txt``."""
+    PSNR was evaluated, ``results.txt``. A renderer built with a ``mesh``
+    renders each view over its ranks, each of which calls this; only rank
+    0 writes files."""
     device = resolve_device(device)
+    if savedir is not None and not pmesh.writer(
+            getattr(render_chunk_for, "mesh", None)):
+        savedir = None
     HW = np.copy(np.asarray(HW))
     Ks = np.copy(np.asarray(Ks, np.float32))
     if render_factor != 0:

@@ -11,6 +11,17 @@ renders the whole view at once, as the JAX package's ``lax.scan`` does
 the frame (``prepare_frame``, the JAX ``prep`` jit) and every chunk with
 its rays made on the device; on the CPU the same two bodies run eagerly.
 A capture that fails raises: there is no eager fallback on the card.
+
+With ``mesh`` (``parallel.mesh``) the image function splits a view's
+chunks over the ranks: rank r renders chunks r, r + n, ... (each chunk
+whole, under the single-device chunk's budgets, with no collective inside
+a chunk), and one all-gather at the end of the chunk graph gives every
+rank the whole view in chunk order; the budget audit's worst chunk is
+then taken over all ranks. As in the JAX package, a chunk that does not
+divide over the ranks raises (``ValueError``), although the split itself
+would not need it. The eager chunk function renders its chunk whole on
+every rank. The renderer's model and state are broadcast from rank 0 when
+it is built; ``render_viewpoints`` writes on rank 0 only.
 """
 from __future__ import annotations
 
@@ -23,20 +34,15 @@ from ..data.rays import pixels_to_rays
 from ..models import temporal_points as tp
 from ..models import tineuvox
 from ..ops.marching import composite
+from ..parallel import mesh as pmesh
 # the graph machinery the render shares with training, importable here
 from ..utils.graphs import GraphedCall, Graphs, load_static  # noqa: F401
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("multi-device rendering (mesh) is not "
-                                  "ported")
-
-
-def make_image_scan(body: Callable, keys, graphs: Graphs):
+def make_image_scan(body: Callable, keys, graphs: Graphs, mesh=None):
     """Whole-image renderer: the rays made on the device, the chunk loop
-    as one CUDA graph (the JAX ``lax.scan``; the JAX ``mesh=`` is not
-    ported).
+    as one CUDA graph (the JAX ``lax.scan``); with ``mesh`` the rank's
+    chunks and the all-gather of the view (see the module docstring).
 
     ``body(extra, ro, rd, vd) -> dict``; ``extra`` is whatever the chunks
     read besides the rays (the frame, a time): a graph reads it where it
@@ -47,8 +53,13 @@ def make_image_scan(body: Callable, keys, graphs: Graphs):
     are no tensors). Every chunk has ``chunk`` rays: the last one repeats
     the last pixel, as the JAX scan pads it. One graph per (extra, H, W,
     chunk, flags); K [3, 3] and c2w [4, 4] go into its static inputs."""
+    world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
+
     def image_fn(extra, K, c2w, H: int, W: int, chunk: int,
                  inverse_y=False, flip_x=False, flip_y=False):
+        if chunk % world:
+            raise ValueError(f"chunk {chunk} must divide over the "
+                             f"{world}-rank mesh")
         # on the card a graph belongs to the ``extra`` it read at capture
         # (the key's id stays unique: the frame graph or the renderer
         # holds the object); on the CPU ``extra`` is passed at every call
@@ -61,13 +72,16 @@ def make_image_scan(body: Callable, keys, graphs: Graphs):
             cd = torch.zeros((1, 4, 4), device=dev)
             n = H * W
             n_chunks = -(-n // chunk)
+            per = -(-n_chunks // world)           # chunks a rank renders
 
             def run(extra):
                 cam = torch.zeros(chunk, dtype=torch.int64, device=dev)
                 ar = torch.arange(chunk, device=dev)
                 parts: Dict[str, list] = {k: [] for k in keys}
                 last = {}
-                for ci in range(n_chunks):
+                for j in range(per):
+                    # a rank short of chunks renders the last one again
+                    ci = min(j * world + rank, n_chunks - 1)
                     pix = torch.clamp(ci * chunk + ar, max=n - 1)
                     ro, rd, vd = pixels_to_rays(
                         Kd, cd, cam, pix, H, W, inverse_y=inverse_y,
@@ -78,9 +92,18 @@ def make_image_scan(body: Callable, keys, graphs: Graphs):
                             parts[k].append(last[k])
                 out = {k: v for k, v in last.items()
                        if not torch.is_tensor(v)}
-                out.update((k, torch.stack(v)) for k, v in parts.items()
-                           if v)
+                out.update((k, gather(torch.stack(v))) for k, v in
+                           parts.items() if v)
                 return out
+
+            def gather(x):
+                """[per, chunk, ...] of each rank -> [n_chunks, chunk,
+                ...] in chunk order."""
+                if mesh is None:
+                    return x
+                x = pmesh.all_gather_flat(x, mesh)
+                x = x.view(world, per, *x.shape[1:]).transpose(0, 1)
+                return x.reshape(world * per, *x.shape[2:])[:n_chunks]
 
             return run, (Kd, cd)
 
@@ -108,10 +131,11 @@ def chunk_loop(fn: Callable) -> Callable:
 def make_backbone_renderer(model: tineuvox.TiNeuVox, stepsize, near, far, bg,
                            mesh=None):
     """Renderer for the TiNeuVox backbone: ``for_view(i, t)``; its image
-    function reads the time from a static input."""
-    _no_mesh(mesh)
+    function reads the time from a static input. ``mesh``: the view's
+    chunks split over the ranks (see the module docstring)."""
+    pmesh.put_replicated(model, mesh)
     n_steps = model.cfg.max_steps(stepsize)
-    graphs = Graphs(model.feature.device)
+    graphs = Graphs(model.feature.device, thread_local=mesh is not None)
     t_static = torch.zeros(1, device=graphs.device)
 
     def body(t, ro, rd, vd):
@@ -120,7 +144,7 @@ def make_backbone_renderer(model: tineuvox.TiNeuVox, stepsize, near, far, bg,
                                stepsize, bg, n_steps)
         return {"rgb_marched": res["rgb_marched"], "depth": res["depth"]}
 
-    scan = make_image_scan(body, ("rgb_marched", "depth"), graphs)
+    scan = make_image_scan(body, ("rgb_marched", "depth"), graphs, mesh)
 
     def for_view(i, t):
         @torch.inference_mode()
@@ -137,6 +161,7 @@ def make_backbone_renderer(model: tineuvox.TiNeuVox, stepsize, near, far, bg,
         return fn
 
     for_view.graphs = graphs
+    for_view.mesh = mesh
     return for_view
 
 
@@ -180,8 +205,9 @@ def make_points_renderer(model: tp.TemporalPoints, state, near, far, bg,
     chunk graph and adds the frame's ``joints_warped``. With ``poses`` and
     ``Ks`` the view's ``finish()`` adds ``joints_2d`` and ``bones``. The
     budget audit warns once per renderer, over the worst chunk of its first
-    view."""
-    _no_mesh(mesh)
+    view. ``mesh``: the view's chunks split over the ranks (see the module
+    docstring)."""
+    pmesh.put_replicated(model, mesh, state)
     cfg = model.cfg
     dev = state["canonical_pcd"].device
     mask = (tp.get_weights(model, state).sum(0) > 0).cpu().numpy()
@@ -189,7 +215,7 @@ def make_points_renderer(model: tp.TemporalPoints, state, near, far, bg,
     if mask.any():
         cols[mask] = weight_palette(int(mask.sum()))
     cols_dev = torch.as_tensor(cols, device=dev)
-    graphs = Graphs(dev)
+    graphs = Graphs(dev, thread_local=mesh is not None)
 
     def body(frame, ro, rd, vd):
         res = tp.forward(model, state, ro, rd, vd, near=near, far=far, bg=bg,
@@ -211,7 +237,7 @@ def make_points_renderer(model: tp.TemporalPoints, state, near, far, bg,
 
     scan = make_image_scan(
         body, ("rgb_marched", "depth", "acc", "weights", "budget_audit"),
-        graphs)
+        graphs, mesh)
 
     def graphed_frame(t, rot_params):
         """The frame graph of a time, or of a pose of this shape, with its
@@ -292,6 +318,7 @@ def make_points_renderer(model: tp.TemporalPoints, state, near, far, bg,
 
     for_view._audited = False
     for_view.graphs = graphs
+    for_view.mesh = mesh
     return for_view
 
 

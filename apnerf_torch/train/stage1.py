@@ -15,8 +15,19 @@ and ``.get``. Ray microbatching follows the JAX package: ``ray_microbatch``
 ``microbatches(N_rand)`` equal parts, 1 keeps it whole, n > 1 splits it in
 n; each part takes its own forward and backward under the active budget
 of its own rays, the gradients are summed in fp32 and scaled by 1/n before
-the TV gradient and the one masked-Adam update. The multi-device ``mesh``
-is not ported and raises ``NotImplementedError``.
+the TV gradient and the one masked-Adam update.
+
+With ``mesh`` (``parallel.mesh``, one process a rank: NCCL on the card,
+gloo on the CPU) the training is data-parallel as in the JAX package:
+every rank draws the same global batch, samples and compacts it whole
+under the global active budget (so the surviving samples are the
+single-device run's), runs the grid gather, the MLPs and the heads on its
+block of the slots (``tineuvox.forward(mesh=)``), and the gradients are
+summed over the ranks (``MaskedAdam.reduce``) before the TV gradient, the
+``skip_zero_grad_fields`` mask and the ZeRO-1 update, whose all-gather
+gives every rank the whole parameters. ``N_rand`` must divide over the
+ranks, and there is no microbatching under a mesh. Only rank 0 writes
+checkpoints; they have the single-device format.
 
 On a CUDA device each training step is one replay of a captured CUDA
 graph (``make_graphed_step``), one graph per *segment* as the JAX package
@@ -44,6 +55,7 @@ from ..data import rays as raydata
 from ..models import tineuvox
 from ..ops import compaction, marching
 from ..ops.rays import get_rays_of_a_view
+from ..parallel import mesh as pmesh
 from ..utils import checkpoint as ckpt
 from ..utils.graphs import GraphedStep
 from .masked_adam import MaskedAdam
@@ -68,12 +80,19 @@ def compute_bbox_by_cam_frustrm(HW, Ks, poses, i_train, img_to_cam, near,
     return xyz_min, xyz_max
 
 
-def microbatches(n_rand: int, ray_microbatch: int = 0) -> int:
+def microbatches(n_rand: int, ray_microbatch: int = 0, mesh=None) -> int:
     """The number of ray microbatches a step of ``n_rand`` rays takes:
     ``ray_microbatch``, or for 0 the JAX package's rule, ceil(n_rand /
-    4096) raised until it divides ``n_rand``. Raises ``ValueError`` when
-    the count does not divide ``n_rand``."""
+    4096) raised until it divides ``n_rand`` (1 under a ``mesh``: the two
+    are alternatives). Raises ``ValueError`` when the count does not
+    divide ``n_rand``, or is above 1 under a mesh."""
     n_micro = int(ray_microbatch)
+    if mesh is not None:
+        if n_micro > 1:
+            raise ValueError("ray microbatching and mesh data parallelism "
+                             "are alternatives: set ray_microbatch to 0 or "
+                             "1 under a mesh")
+        return 1
     if n_micro == 0:
         n_micro = -(-n_rand // 4096)
         while n_micro > 1 and n_rand % n_micro:
@@ -98,9 +117,11 @@ def active_budget(n_rand: int, n_steps: int, occ_frac: float):
 
 def make_loss_fn(model: tineuvox.TiNeuVox, cfg_train, Ks, poses, H, W,
                  near, far, bg, inverse_y=False, flip_x=False, flip_y=False,
-                 active_budget=None):
+                 active_budget=None, mesh=None):
     """``loss_fn(batch, occ) -> (loss, mse)``: render the batch's rays
-    through ``model`` and sum the weighted stage-1 losses."""
+    through ``model`` and sum the weighted stage-1 losses. ``mesh``: the
+    forward's slot work split over the ranks (``tineuvox.forward``); the
+    loss is the whole batch's on every rank."""
     stepsize = float(cfg_train["_stepsize"])
     w_main = float(cfg_train["weight_main"])
     w_entropy = float(cfg_train.get("weight_entropy_last", 0.0))
@@ -115,7 +136,7 @@ def make_loss_fn(model: tineuvox.TiNeuVox, cfg_train, Ks, poses, H, W,
         res = tineuvox.forward(model, ro, rd, vd, batch["time"][:, None],
                                near, far, stepsize, bg,
                                model.cfg.max_steps(stepsize), occ_grid=occ,
-                               active_budget=active_budget)
+                               active_budget=active_budget, mesh=mesh)
         target = batch["rgb"]
         mse = torch.mean((res["rgb_marched"] - target) ** 2)
         loss = w_main * mse
@@ -155,10 +176,14 @@ def make_step_body(model: tineuvox.TiNeuVox, cfg_train,
     ``n_micro`` equal consecutive parts (views), each with its own forward
     and backward (``active_budget`` is then a part's); the gradients, loss
     and mse are summed in fp32 in part order and scaled by 1 / n_micro, as
-    the JAX package's ``grad_fn`` accumulates them."""
+    the JAX package's ``grad_fn`` accumulates them.
+
+    Under the optimizer's mesh (``MaskedAdam(mesh=)``) the forward's slot
+    work is split over the ranks and the gradients are summed over them
+    (``MaskedAdam.reduce``) before the TV gradient and the update."""
     loss_fn = make_loss_fn(model, cfg_train, Ks, poses, H, W, near, far, bg,
                            inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y,
-                           active_budget=active_budget)
+                           active_budget=active_budget, mesh=optimizer.mesh)
     w_tv = float(cfg_train.get("weight_tv_feature", 0.0))
     params = dict(model.named_parameters())
 
@@ -192,6 +217,7 @@ def make_step_body(model: tineuvox.TiNeuVox, cfg_train,
 
     def body(batch, occ, tv_on, tv_dense):
         loss, mse, grads = loss_and_grads(batch, occ)
+        grads = optimizer.reduce(grads)
         if w_tv > 0 and tv_on:
             g = grads["feature"]
             g = torch.zeros_like(model.feature) if g is None else g
@@ -263,7 +289,8 @@ def make_graphed_step(model: tineuvox.TiNeuVox, cfg_train,
     def keyed(tv_on, tv_dense):
         return lambda: body(batch, occ, tv_on, tv_dense)
 
-    return GraphedStep(keyed, inputs, Ks.device, prepare=optimizer.advance)
+    return GraphedStep(keyed, inputs, Ks.device, prepare=optimizer.advance,
+                       thread_local=optimizer.mesh is not None)
 
 
 def refresh_occupancy(model: tineuvox.TiNeuVox, stepsize: float):
@@ -297,12 +324,18 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
     ``ckpt_every``: periodic ``fine_progress.pkl`` checkpoints (model, Adam
     state, step) and an automatic resume from one. ``stats`` holds
     ``psnr``, ``loss`` and ``seconds`` (wall time since the start) at each
-    logged step."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device stage-1 training (mesh) is "
-                                  "not ported")
+    logged step.
+
+    ``mesh`` (``parallel.mesh.make_mesh``): data-parallel training over its
+    ranks, each of which calls this with the same arguments (see the module
+    docstring); ``N_rand`` must divide over them. The model returned is
+    the same on every rank."""
     n_rand = int(cfg.train_config["N_rand"])
-    n_micro = microbatches(n_rand, cfg.train_config.get("ray_microbatch", 0))
+    if mesh is not None and n_rand % mesh.world:
+        raise ValueError(f"N_rand ({n_rand}) must divide over the mesh "
+                         f"({mesh.world} ranks)")
+    n_micro = microbatches(n_rand, cfg.train_config.get("ray_microbatch", 0),
+                           mesh)
     dev = resolve_device(device)
     cfg_model = cfg.model_and_render
     cfg_train = dict(cfg.train_config)
@@ -367,7 +400,7 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
     def build_segment(occupancy_active, optimizer=None):
         """A segment's graphed step (and a new optimizer unless one is
         given)."""
-        optimizer = optimizer or MaskedAdam(model, cfg_train)
+        optimizer = optimizer or MaskedAdam(model, cfg_train, mesh=mesh)
         budget = None
         if n_micro > 1:
             print(f"stage1: ray microbatching x{n_micro} "
@@ -398,6 +431,7 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
         model = ckpt.tineuvox_from_jax(resume["model_kwargs"],
                                        resume["params"], dev)
         print(f"stage1: resuming from {ckpt_path} at step {start_step}")
+    pmesh.put_replicated(model, mesh)
     occupancy_active = bool(use_occ and start_step >= occ_start)
     step_fn, optimizer = build_segment(occupancy_active)
     if resume is not None:
@@ -463,5 +497,6 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
             if callback is not None:
                 callback(global_step, model, model.cfg, stats)
         if ckpt_path and ckpt_every and global_step % ckpt_every == 0:
-            ckpt.save_tineuvox(ckpt_path, model, optimizer, global_step)
+            ckpt.save_tineuvox(ckpt_path, model, optimizer, global_step,
+                               write=pmesh.writer(mesh))
     return model, model.cfg, stats

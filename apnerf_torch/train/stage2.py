@@ -38,8 +38,24 @@ the JAX package does); a failure to write the comparison video is not
 caught (``render.write_video`` has an encoder of its own). The previews'
 writer is ``torch.utils.tensorboard.SummaryWriter`` where tensorboard
 imports; without it, nothing is written and, as in the JAX package, no
-preview view is drawn from the batch generator. Not ported yet (raises
-``NotImplementedError``): the multi-device ``mesh``.
+preview view is drawn from the batch generator.
+
+With ``mesh`` (``parallel.mesh``, one process a rank: NCCL on the card,
+gloo on the CPU) the training is data-parallel as in the JAX package:
+every rank builds the model (K1 on each; the parameters and the state
+then broadcast from rank 0), draws the same global batch from the same
+host random stream, samples and compacts it whole under the global
+budgets (the surviving samples are the single-device run's), runs K2, K3,
+``feat_net`` and the heads on its block of the slots
+(``temporal_points.forward(mesh=)``), and the gradients are summed over
+the ranks (``MaskedAdam.reduce``) before the ZeRO-1 update. The terms
+that are no sum over rays (ARAP, the weight TV and sparsity, the
+transformation regulariser, the joint and 2D mask chamfers), which every
+rank computes whole, enter the summed gradient once
+(``parallel.mesh.count_once``). ``N_rand`` must divide over the ranks.
+Only rank 0 writes checkpoints (the single-device format) and previews;
+the other ranks draw the previews' views from the host stream all the
+same, so that the streams stay equal.
 """
 from __future__ import annotations
 
@@ -56,6 +72,7 @@ from ..data import rays as raydata
 from ..models import temporal_points as tp
 from ..ops.knn import knn
 from ..ops.marching import composite
+from ..parallel import mesh as pmesh
 from ..render.render import write_video
 from ..render.renderers import weight_palette
 from ..utils import checkpoint as ckpt
@@ -152,10 +169,13 @@ def project_views(points, poses, Ks):
 
 def make_loss_fn(model: tp.TemporalPoints, state, cfg_train, Ks, poses,
                  H, W, near, far, bg, n_chamfer_views: int, inverse_y=False,
-                 flip_x=False, flip_y=False):
+                 flip_x=False, flip_y=False, mesh=None):
     """``loss_fn(batch) -> (loss, metrics)``: the stage-2 forward of the
     batch's rays at its time and the weighted sum of the terms whose
-    weight is positive (``metrics`` holds each term and ``mse``)."""
+    weight is positive (``metrics`` holds each term and ``mse``).
+    ``mesh``: the forward's slot work split over the ranks, and the terms
+    that every rank computes whole counted once in the ranks' summed
+    gradient; the loss is the same on every rank."""
     w_render = float(cfg_train.get("weight_render", 0))
     w_arap = float(cfg_train.get("weight_arap", 0))
     w_tv = float(cfg_train.get("weight_tv", 0))
@@ -169,8 +189,12 @@ def make_loss_fn(model: tp.TemporalPoints, state, cfg_train, Ks, poses,
             Ks, poses, batch["cam"], batch["pix"], H, W,
             inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y)
         res = tp.forward(model, state, ro, rd, vd, t=batch["t"], near=near,
-                         far=far, bg=bg)
+                         far=far, bg=bg, mesh=mesh)
         metrics: Dict[str, torch.Tensor] = {}
+
+        def once(x):
+            return pmesh.count_once(x, mesh)
+
         mse = torch.mean((res["rgb_marched"] - batch["rgb"]) ** 2)
         metrics["mse"] = mse
         loss = torch.zeros((), device=mse.device)
@@ -178,23 +202,23 @@ def make_loss_fn(model: tp.TemporalPoints, state, cfg_train, Ks, poses,
             loss = loss + w_render * mse
         if w_arap > 0:
             metrics["arap"] = tp.arap_loss(state, res["t_hat_pcd"])
-            loss = loss + w_arap * metrics["arap"]
+            loss = loss + w_arap * once(metrics["arap"])
         if w_tv > 0:
             metrics["weight_tv"] = tp.neighbour_weight_tv_loss(
                 state, res["lbs_weights"])
-            loss = loss + w_tv * metrics["weight_tv"]
+            loss = loss + w_tv * once(metrics["weight_tv"])
         if w_sparse > 0:
             metrics["sparsity"] = tp.weight_sparsity_loss(res["lbs_weights"])
             loss = loss + (batch["sparsity_on"] * w_sparse
-                           * metrics["sparsity"])
+                           * once(metrics["sparsity"]))
         if w_trans > 0:
             metrics["trans_reg"] = tp.transformation_reg_loss(
                 res["global_t"], res["thetas"])
-            loss = loss + w_trans * metrics["trans_reg"]
+            loss = loss + w_trans * once(metrics["trans_reg"])
         if w_jcham > 0:
             metrics["joint_chamfer"] = tp.joint_chamfer_loss(state,
                                                              model.joints)
-            loss = loss + w_jcham * metrics["joint_chamfer"]
+            loss = loss + w_jcham * once(metrics["joint_chamfer"])
         if w_cham2d > 0 and n_chamfer_views > 0:
             proj = project_views(res["t_hat_pcd"][batch["chamfer_pcd_idx"]],
                                  batch["chamfer_poses"], batch["chamfer_Ks"])
@@ -204,7 +228,7 @@ def make_loss_fn(model: tp.TemporalPoints, state, cfg_train, Ks, poses,
             proj = proj.flip(-1)                     # (x, y) -> (row, col)
             metrics["chamfer2d"] = tp.batch_chamfer_2d(
                 proj, batch["chamfer_mask_pts"])
-            loss = loss + w_cham2d * metrics["chamfer2d"]
+            loss = loss + w_cham2d * once(metrics["chamfer2d"])
         return loss, metrics
 
     return loss_fn
@@ -217,16 +241,19 @@ def make_step_body(model: tp.TemporalPoints, state, cfg_train,
     """``body(batch) -> (metrics, grads)``: the loss, its backward and the
     masked-Adam update of the step that ``optimizer.advance()`` counted;
     ``metrics`` detached (``loss`` included), ``grads`` the gradient of
-    each parameter by name (None where none reaches it)."""
+    each parameter by name (None where none reaches it). Under the
+    optimizer's mesh (``MaskedAdam(mesh=)``) the forward's slot work is
+    split over the ranks and ``grads`` are summed over them."""
     loss_fn = make_loss_fn(model, state, cfg_train, Ks, poses, H, W, near,
                            far, bg, n_chamfer_views, inverse_y=inverse_y,
-                           flip_x=flip_x, flip_y=flip_y)
+                           flip_x=flip_x, flip_y=flip_y, mesh=optimizer.mesh)
 
     def body(batch):
         model.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batch)
         loss.backward()
-        grads = {n: p.grad for n, p in model.named_parameters()}
+        grads = optimizer.reduce({n: p.grad
+                                  for n, p in model.named_parameters()})
         optimizer.apply(grads)
         metrics["loss"] = loss
         return {k: v.detach() for k, v in metrics.items()}, grads
@@ -285,7 +312,8 @@ def make_graphed_step(model: tp.TemporalPoints, state, cfg_train,
                           inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y)
     inputs = step_inputs(n_rand, n_chamfer_views, Ks.device)
     return GraphedStep(lambda: (lambda: body(inputs)), inputs, Ks.device,
-                       prepare=optimizer.advance)
+                       prepare=optimizer.advance,
+                       thread_local=optimizer.mesh is not None)
 
 
 @torch.no_grad()
@@ -342,12 +370,15 @@ def train_pcd(cfg, data_dict, canonical, skeleton, tineuvox_params,
     model, mcfg, state, stats)`` runs after each log. With ``ckpt_path``
     and ``ckpt_every``: a checkpoint (model, Adam state, step, host random
     state) every ``ckpt_every`` steps and a resume from one found at
-    ``ckpt_path``."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device stage-2 training (mesh) is "
-                                  "not ported")
+    ``ckpt_path``. ``mesh`` (``parallel.mesh.make_mesh``): data-parallel
+    training over its ranks, each of which calls this with the same
+    arguments (see the module docstring); ``N_rand`` must divide over
+    them."""
     dev = resolve_device(device)
     cfg_train = cfg.pcd_train_config
+    if mesh is not None and int(cfg_train.N_rand) % mesh.world:
+        raise ValueError(f"N_rand ({int(cfg_train.N_rand)}) must divide "
+                         f"over the mesh ({mesh.world} ranks)")
     n_iters = n_iters or int(cfg_train.N_iters)
     rng = np.random.default_rng(seed)
     flips = dict(inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
@@ -373,12 +404,16 @@ def train_pcd(cfg, data_dict, canonical, skeleton, tineuvox_params,
                                      frozen_view_dir=frozen_view_dir,
                                      sample_budget=sample_budget,
                                      max_steps=max_steps, device=dev)
+    pmesh.put_replicated(model, mesh, state)
     Ks = torch.as_tensor(np.asarray(data_dict["Ks"], np.float32), device=dev)
     poses = torch.as_tensor(np.asarray(data_dict["poses"], np.float32),
                             device=dev)
-    budget_audit(model, state, ray_index, Ks, poses, H, W, near, far, flips)
+    if pmesh.writer(mesh):
+        # a diagnostic print: rank 0's is every rank's
+        budget_audit(model, state, ray_index, Ks, poses, H, W, near, far,
+                     flips)
 
-    optimizer = MaskedAdam(model, cfg_train)
+    optimizer = MaskedAdam(model, cfg_train, mesh=mesh)
     unique_times = np.unique(np.asarray(data_dict["times"])[i_train])
     sampler = InverseProportionalSampler(len(unique_times), seed=seed)
     start_step = 0
@@ -397,10 +432,14 @@ def train_pcd(cfg, data_dict, canonical, skeleton, tineuvox_params,
         print(f"stage2: resuming from {ckpt_path} at step {start_step}")
 
     def save_progress(step):
+        # every rank gathers the ZeRO-1 moments; rank 0 writes
+        opt_state = optimizer.state_to_jax()
+        if not pmesh.writer(mesh):
+            return
         ckpt.save_checkpoint(
             ckpt_path, dataclasses.asdict(mcfg),
             ckpt.params_to_jax(model.state_dict()),
-            extra={"opt_state": optimizer.state_to_jax(),
+            extra={"opt_state": opt_state,
                    "host_rng": {"rng": rng.bit_generator.state,
                                 "sampler_rng": sampler.rng.bit_generator.state,
                                 "sampler_counts": sampler.counts.copy()}},
@@ -438,15 +477,17 @@ def train_pcd(cfg, data_dict, canonical, skeleton, tineuvox_params,
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
     writer = None
+    previews_on = False
     if tensorboard_path:
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
             print("stage2: tensorboard unavailable, logging to console only")
         else:
-            writer = SummaryWriter(tensorboard_path)
+            previews_on = True
+            if pmesh.writer(mesh):
+                writer = SummaryWriter(tensorboard_path)
     bg = float(cfg_train.bg_col)
-    w_cols = tensor(weight_palette(mcfg.n_joints).astype(np.float32))
 
     def view_rays(cam, factor):
         """The rays of camera ``cam``'s view at 1 / ``factor`` size."""
@@ -481,6 +522,8 @@ def train_pcd(cfg, data_dict, canonical, skeleton, tineuvox_params,
         training camera over times evenly in [0, 1] -> [T, h, 4w, 3]
         (reference run.py:772-811)."""
         h, w = H // factor, W // factor
+        # the palette here: it imports seaborn where installed (seconds)
+        w_cols = tensor(weight_palette(mcfg.n_joints).astype(np.float32))
         cam0 = int(ray_index.img_cam[0])
         ro, rd, vd = view_rays(cam0, factor)
         cam_rows = np.where(ray_index.img_cam == cam0)[0]
@@ -506,6 +549,9 @@ def train_pcd(cfg, data_dict, canonical, skeleton, tineuvox_params,
 
     def previews(step):
         rows = rng.integers(0, len(i_train), 3)
+        if writer is None:
+            # a rank other than 0 keeps its host stream equal to rank 0's
+            return
         panels = []
         for r in rows:
             pred, gt = render_preview(int(r))
@@ -575,8 +621,8 @@ def train_pcd(cfg, data_dict, canonical, skeleton, tineuvox_params,
                     callback(global_step, model, mcfg, state, stats)
             if ckpt_path and ckpt_every and global_step % ckpt_every == 0:
                 save_progress(global_step)
-            if writer is not None and (global_step % i_save == 0
-                                       or global_step == 1):
+            if previews_on and (global_step % i_save == 0
+                                or global_step == 1):
                 previews(global_step)
     finally:
         if writer is not None:

@@ -166,13 +166,17 @@ def tineuvox_from_jax(model_kwargs: Dict[str, Any], tree, device=None):
 
 
 def save_tineuvox(path: str, model, optimizer=None,
-                  global_step: int = 0) -> None:
+                  global_step: int = 0, write: bool = True) -> None:
     """Write a stage-1 checkpoint the JAX package can load:
     ``fine_last.pkl`` (the model alone) or, with ``optimizer`` (a
     ``train.masked_adam.MaskedAdam``), ``fine_progress.pkl`` with the Adam
-    ``count`` / ``mu`` / ``nu`` for a mid-stage resume."""
+    ``count`` / ``mu`` / ``nu`` for a mid-stage resume. Under a mesh every
+    rank calls it (the ZeRO-1 moments are gathered) and only the rank with
+    ``write`` writes."""
     extra = None if optimizer is None else {
         "opt_state": optimizer.state_to_jax()}
+    if not write:
+        return
     save_checkpoint(path, model.cfg.get_kwargs(),
                     params_to_jax(model.state_dict()), extra=extra,
                     global_step=global_step)

@@ -12,6 +12,12 @@ the CPU every call runs the body. A capture that fails raises: there is no
 eager fallback on the card. Code on a body's path may make no host tensor
 and read nothing back (``torch.tensor``, ``.item()``, ``.cpu()``, a
 Python number stored into a CUDA tensor): a capture refuses both.
+
+Under a mesh (``parallel.mesh``) a body holds its collectives, which the
+graph captures on the capture stream; the eager first call forms NCCL's
+communicator before the capture, which would refuse that. Such a body is
+captured with ``thread_local`` set: a capture then refuses only this
+thread's unsafe calls, not those of the process group's watchdog thread.
 """
 from __future__ import annotations
 
@@ -54,14 +60,16 @@ class GraphedCall:
     optimizer update): the eager run is the first call's step and its
     outputs are returned; the replays start at the next call. On the CPU
     (``pool`` None) every call runs ``body``. ``capture_ms`` is the
-    capture's host time."""
+    capture's host time. ``thread_local``: the capture's error mode is
+    ``"thread_local"`` (a body with collectives), else the default."""
 
     def __init__(self, body: Callable, inputs: tuple, pool=None,
-                 step: bool = False):
+                 step: bool = False, thread_local: bool = False):
         self.body = body
         self.inputs = inputs
         self.pool = pool
         self.step = step
+        self.thread_local = thread_local
         self.replay: Optional[kernels.GraphReplay] = None
         self.out = None
         self.capture_ms: Optional[float] = None
@@ -89,9 +97,11 @@ class GraphedCall:
         # a capture invalidates the capture
         collecting = gc.isenabled()
         gc.disable()
+        mode = ({"capture_error_mode": "thread_local"} if self.thread_local
+                else {})
         try:
             with kernels.counted_capture() as launches, \
-                    torch.cuda.graph(graph, pool=self.pool):
+                    torch.cuda.graph(graph, pool=self.pool, **mode):
                 self.out = self.body(*args)
         finally:
             if collecting:
@@ -108,13 +118,16 @@ class Graphs:
     one stream and each call's outputs are read before the next call
     (a frame graph feeds the chunk graph replayed right after it; a
     training step's metrics are read before the next step). ``step``: the
-    calls are training steps (``GraphedCall``)."""
+    calls are training steps; ``thread_local``: their bodies hold
+    collectives (``GraphedCall``)."""
 
-    def __init__(self, device: torch.device, step: bool = False):
+    def __init__(self, device: torch.device, step: bool = False,
+                 thread_local: bool = False):
         self.device = torch.device(device)
         self.pool = (torch.cuda.graph_pool_handle()
                      if self.device.type == "cuda" else None)
         self.step = step
+        self.thread_local = thread_local
         self.calls: Dict[tuple, GraphedCall] = {}
 
     def call(self, key: tuple, make: Callable) -> GraphedCall:
@@ -122,7 +135,8 @@ class Graphs:
         time."""
         if key not in self.calls:
             self.calls[key] = GraphedCall(*make(), pool=self.pool,
-                                          step=self.step)
+                                          step=self.step,
+                                          thread_local=self.thread_local)
         return self.calls[key]
 
 
@@ -135,11 +149,13 @@ class GraphedStep:
     (one a setting of the host flags that pick a branch of the body). The
     first call of a key is that step run eagerly, captured after. One
     ``GraphedStep`` is a segment: what changes the step's shapes, its
-    parameters' storage or its optimizer starts a new one."""
+    parameters' storage or its optimizer starts a new one.
+    ``thread_local``: the body holds collectives (``GraphedCall``)."""
 
     def __init__(self, body: Callable, inputs: Dict[str, torch.Tensor],
-                 device, prepare: Optional[Callable] = None):
-        self.graphs = Graphs(device, step=True)
+                 device, prepare: Optional[Callable] = None,
+                 thread_local: bool = False):
+        self.graphs = Graphs(device, step=True, thread_local=thread_local)
         self.inputs = inputs
         self.body = body
         self.prepare = prepare

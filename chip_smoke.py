@@ -158,8 +158,26 @@ and no result line is printed):
    animated-PNG stand-in); (4) the backbone's ``--render_test``. Times:
    the scene, a PNG decode, stage-1 and stage-2 ms/step (graph replays),
    the export, each invocation.
-9. a JSON line of the kernels (each kernel's launches summed over the
-   paths of phases 4-8, and by path: P1's on the avg_procrustes view and
+9. mesh (run after phase 7, before phase 8) -- the mesh paths of
+   ``apnerf_torch.parallel`` on a world-size-1 NCCL group (the card is
+   one; a group of two needs two cards), each
+   against the same call without the mesh and the launch counts at 0
+   just before it: phase 4's ``scene_rep_reconstruction`` (10 graphed
+   steps, three segments, K5) and ``MESH_STAGE2_STEPS`` steps of phase 7's
+   ``train_pcd`` (K1, K2, K3; the moments ZeRO-1 split) with
+   ``mesh=make_mesh(1)``, each run twice without the mesh as the control:
+   the first loss equal and the mesh run's largest loss gap within
+   ``TRAJ_GAP_MULT`` times the two plain runs' (or both zero), the
+   parameters' gap after the last step, ms a step, the NCCL kernels,
+   device copies and host calls of one replay of the last segment's
+   graph, peak memory;
+   then one 400 x 400 view of phase 5's checkpoint, fused (K2, K3, K6)
+   and exact (K2, K3, K4), through ``make_points_renderer(mesh=)`` and
+   ``render_viewpoints``: bit-equal to the view without the mesh, ms a
+   frame graphed, NCCL kernels, device copies and host calls a frame,
+   peak memory.
+10. a JSON line of the kernels (each kernel's launches summed over the
+   paths of phases 4-9, and by path: P1's on the avg_procrustes view and
    steps), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -327,6 +345,7 @@ MICRO_N_RAND = 8192
 EXPORT_STEPS = 100
 PCD_BAND = (7500, 12500)
 STAGE2_STEPS = 30
+MESH_STAGE2_STEPS = 10   # phase 9's train_pcd runs
 STAGE2_MAX_STEPS = 192
 # One step's gradients through K2 / K3 against the same step through their
 # plain versions: the selection is bit-equal, so the loss must be equal
@@ -2931,9 +2950,298 @@ def phase_stage2(torch, data, ckpt_dir, stage1_cfg):
           f"(gate: half the training mask's {mask_fg:.4f}), max opacity "
           f"{float(acc.max()):.3f}, psnr vs training view 0 "
           f"{psnr(rgb, data['images'][0]):.2f} dB", flush=True)
+    ctx = dict(cfg=cfg, data=data, can=can, sk=sk, heads=heads,
+               s1cfg=s1cfg, bbox=bbox)
     return {"stage2 train": launches, "stage2 featmlp_train": k4_launches,
             "stage2 avg_procrustes": ap_launches,
-            "stage2 load and render": load_launches}
+            "stage2 load and render": load_launches}, ctx
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the mesh paths (apnerf_torch.parallel) at world size 1 on NCCL
+# ---------------------------------------------------------------------------
+def nccl_profile(torch, fn):
+    """``fn()`` (one graph replay) under the profiler -> (host launch
+    calls, the device's NCCL kernels and device-to-device copies: a
+    world-size-1 group's collectives are copies or nothing)."""
+    from apnerf_torch.train.profile_stage1 import host_calls
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = {"nccl kernels": sum(e.count for e in device
+                                if "nccl" in e.key.lower()),
+            "DtoD copies": sum(e.count for e in device
+                               if "memcpy" in e.key.lower()
+                               and "dtod" in e.key.lower())}
+    return host_calls(prof), nccl
+
+
+def loss_gap(a, b):
+    """Largest relative difference of two loss sequences."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def param_gap(a, b):
+    """Largest absolute difference of two parameter dicts (CPU copies)."""
+    return max(float((v - b[n]).abs().max()) for n, v in a.items())
+
+
+def mesh_trainer_runs(torch, label, train, mesh, gate_launches, replay):
+    """``train(mesh, made) -> (model, losses, step ms, the segments'
+    steps)`` run twice without the mesh (the second the control: two runs
+    of one program) and once with it, each with the launch counts at 0
+    just before it -> the readings of each run, the mesh run's largest
+    relative loss gap to the first run and the control's. After a run,
+    ``replay(last segment's step)`` once under the profiler, then the
+    run's model, graphs and optimizer are freed (three runs' graph pools
+    do not fit the card together). The losses must agree step for step:
+    the first step's equal, and the mesh run's gap within
+    ``TRAJ_GAP_MULT`` times the control's (or both zero)."""
+    import gc
+    from apnerf_torch import kernels
+    runs = {}
+    for name, m in (("plain", None), ("control", None), ("mesh", mesh)):
+        made = {}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        model, losses, step_ms, steps = train(m, made)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - held
+        host, nccl = nccl_profile(torch, lambda: replay(steps[-1]))
+        runs[name] = dict(
+            losses=np.asarray(losses), step_ms=step_ms, whole_s=whole_s,
+            launches=launches, peak=peak, host=host, nccl=nccl,
+            captures=[round(v, 1) for st in steps
+                      for v in st.capture_ms.values()],
+            params={n: p.detach().float().cpu()
+                    for n, p in model.named_parameters()},
+            split=[len(o.split) for o in made.get("MaskedAdam", [])])
+        del model, steps, made
+    gate_launches(runs["mesh"]["launches"])
+    plain, mesh_run = runs["plain"], runs["mesh"]
+    gap = loss_gap(mesh_run["losses"], plain["losses"])
+    control = loss_gap(runs["control"]["losses"], plain["losses"])
+    first_equal = mesh_run["losses"][0] == plain["losses"][0]
+    if not (first_equal and (gap <= TRAJ_GAP_MULT * control
+                             or gap == control == 0.0)):
+        raise AssertionError(f"{label}: losses with the mesh "
+                             f"{mesh_run['losses']} vs without "
+                             f"{plain['losses']} (gap {gap:.3g}, control "
+                             f"{control:.3g})")
+    return runs, gap, control
+
+
+def phase_mesh(torch, ctx, s1_data, ckpt_dir):
+    """Phase 9: ``scene_rep_reconstruction(mesh=)``, ``train_pcd(mesh=)``
+    and ``make_points_renderer(mesh=)`` through ``render_viewpoints`` on a
+    world-size-1 NCCL group (``apnerf_torch.parallel``), each against the
+    same call without the mesh. Returns the launch counts of each mesh
+    path."""
+    import dataclasses
+    import socket
+    import torch.distributed as dist
+    from apnerf_torch import cli, kernels, parallel
+    from apnerf_torch.render.render import render_viewpoints
+    from apnerf_torch.render.renderers import make_points_renderer
+    from apnerf_torch.train import stage1, stage2
+    from apnerf_torch.utils.checkpoint import load_temporalpoints
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    parallel.initialize(1, 0, init_method=f"tcp://localhost:{port}",
+                        device=DEVICE)
+    by_path = {}
+    try:
+        mesh = parallel.make_mesh(1)
+        if dist.get_backend() != "nccl" or mesh.device.type != "cuda":
+            raise AssertionError(f"mesh: backend {dist.get_backend()} on "
+                                 f"{mesh.device}")
+        print(f"mesh: a world-size-1 NCCL group on {mesh.device} formed in "
+              f"{time.perf_counter() - t0:.1f} s (torch "
+              f"{torch.__version__}, NCCL "
+              f"{'.'.join(map(str, torch.cuda.nccl.version()))})",
+              flush=True)
+
+        # ---- stage 1: phase 4's run, with and without the mesh
+        cfg1 = nerf_config(TRAIN_STEPS, refresh_every=TRAIN_REFRESH)
+
+        def train1(m, made):
+            with record(stage1, "make_graphed_step", made), \
+                    record(stage1, "MaskedAdam", made):
+                model, _, stats = stage1.scene_rep_reconstruction(
+                    cfg1, s1_data, seed=0, log_every=1, device=DEVICE,
+                    mesh=m)
+            secs = [0.0] + stats["seconds"]
+            ms = [1e3 * (b - a) for a, b in zip(secs[:-1], secs[1:])]
+            return (model, stats["loss"],
+                    ms[cfg1.train_config.pg_scale[-1]:],
+                    made["make_graphed_step"])
+
+        def gate1(launches):
+            if launches["scatter"] == 0:
+                raise AssertionError(f"mesh stage1: launches {launches}")
+
+        runs, gap, control = mesh_trainer_runs(
+            torch, "mesh stage1", train1, mesh, gate1,
+            lambda st: st({}, next(iter(st.graphs.calls))))
+        by_path["mesh stage1"] = runs["mesh"]["launches"]
+        mesh_summary("mesh stage1", runs, gap, control)
+        del runs
+
+        # ---- stage 2: phase 7's train_pcd, 10 steps, ZeRO-1 on
+        def train2(m, made):
+            clock = []
+
+            def tick(step, *args):
+                torch.cuda.synchronize()
+                clock.append(time.perf_counter())
+            with record(stage2, "make_graphed_step", made), \
+                    record(stage2, "MaskedAdam", made):
+                model, _, _, stats = stage2.train_pcd(
+                    ctx["cfg"], ctx["data"], ctx["can"], ctx["sk"],
+                    ctx["heads"], ctx["s1cfg"], ctx["bbox"], seed=0,
+                    n_iters=MESH_STAGE2_STEPS, log_every=1, callback=tick,
+                    max_steps=STAGE2_MAX_STEPS, device=DEVICE, mesh=m)
+            ms = [1e3 * (b - a) for a, b in zip(clock[:-1], clock[1:])]
+            return model, stats["loss"], ms, made["make_graphed_step"]
+
+        def gate2(launches):
+            if (launches["knn_brute"] != 1
+                    or launches["knn_count"] < MESH_STAGE2_STEPS
+                    or launches["knn_radius"] < MESH_STAGE2_STEPS):
+                raise AssertionError(f"mesh stage2: launches {launches}")
+
+        runs, gap, control = mesh_trainer_runs(
+            torch, "mesh stage2", train2, mesh, gate2, lambda st: st({}))
+        split = runs["mesh"]["split"]
+        if not (split and split[-1]):
+            raise AssertionError(f"mesh stage2: ZeRO-1 split {split}")
+        by_path["mesh stage2"] = runs["mesh"]["launches"]
+        mesh_summary("mesh stage2", runs, gap, control,
+                     f"ZeRO-1 split the moments of {split[-1]} of "
+                     f"{len(runs['mesh']['params'])} parameters; ")
+        del runs
+
+        # ---- views: phase 5's checkpoint, fused and exact, one 400x400
+        # view each through render_viewpoints
+        model, state = load_temporalpoints(
+            os.path.join(ckpt_dir, "temporalpoints_shared.pkl"))
+        base = model.cfg
+        modes = {mode: cli.points_render_config(
+            base, {"pcd_model_and_render": over}) for mode, over in (
+                ("fused", dict(knn_share=16, knn_cand=8, coarse_stride=32,
+                               fused_agg=True)),
+                ("exact", dict(render_exact=True)))}
+        pose = np.eye(4, dtype=np.float32)
+        pose[2, 3] = 3.0
+        K = np.array([[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1]],
+                     np.float32)
+        views = {}
+        for mode, mcfg in modes.items():
+            model.cfg = mcfg
+            out = {}
+            for name, m in (("plain", None), ("mesh", mesh)):
+                view = make_points_renderer(model, state, 0.5, 6.0, 1.0,
+                                            render_weights=False, mesh=m)
+
+                def frame(view=view):
+                    return render_viewpoints(
+                        view, pose[None], np.array([[H, W]]), K[None],
+                        [0.5], chunk=CHUNK, verbose=False)["rgbs"][0]
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                frame()                       # the capture
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                img = frame()
+                torch.cuda.synchronize()
+                launches = dict(kernels.LAUNCHES)
+                peak = torch.cuda.max_memory_allocated() - held
+                ms = cuda_ms(frame, reps=5)[0]
+                host, nccl = nccl_profile(torch, frame)
+                out[name] = dict(img=img, launches=launches, peak=peak,
+                                 ms=ms, host=host, nccl=nccl)
+            views[mode] = out
+            if mode == "fused" and not (out["mesh"]["launches"]["agg"]
+                                        and not out["mesh"]["launches"]
+                                        ["featmlp"]):
+                raise AssertionError(f"mesh views: fused launches "
+                                     f"{out['mesh']['launches']}")
+            if mode == "exact" and not all(
+                    out["mesh"]["launches"][k]
+                    for k in ("knn_count", "knn_radius", "featmlp")):
+                raise AssertionError(f"mesh views: exact launches "
+                                     f"{out['mesh']['launches']}")
+            equal = np.array_equal(out["mesh"]["img"], out["plain"]["img"])
+            fg = float((out["plain"]["img"] < 0.99).any(-1).mean())
+            print(f"mesh views {mode} ({nvidia_smi_line()}): one 400x400 "
+                  f"view through make_points_renderer(mesh=) / "
+                  f"render_viewpoints (foreground {fg:.3f}): bit-equal to "
+                  f"the view without the mesh {equal}; ms a frame graphed "
+                  f"{out['mesh']['ms']:.2f} with the mesh, "
+                  f"{out['plain']['ms']:.2f} without; a frame's host calls "
+                  f"{out['mesh']['host']} with, {out['plain']['host']} "
+                  f"without; on the device a frame {out['mesh']['nccl']} "
+                  f"with, {out['plain']['nccl']} without; peak memory "
+                  f"(the capture included, above what was held) "
+                  f"{out['mesh']['peak'] / 2 ** 30:.3f} / "
+                  f"{out['plain']['peak'] / 2 ** 30:.3f} GiB; launches "
+                  f"{out['mesh']['launches']}", flush=True)
+            if not (equal and fg > 0.01):
+                raise AssertionError(f"mesh views {mode}: images differ "
+                                     f"(foreground {fg:.4f})")
+        by_path["mesh views"] = {
+            k: sum(v["mesh"]["launches"][k] for v in views.values())
+            for k in kernels.LAUNCHES}
+        model.cfg = base
+        del views, model, state
+    finally:
+        parallel.shutdown()
+    print(f"mesh: phase 9 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return by_path
+
+
+def mesh_summary(label, runs, gap, control, extra=""):
+    """The line of one trainer's mesh runs: losses, parameters, ms a step,
+    what a replay of the last segment's graph launches, peak memory."""
+    plain, mesh_run = runs["plain"], runs["mesh"]
+    p_gap = param_gap(mesh_run["params"], plain["params"])
+    p_ctl = param_gap(runs["control"]["params"], plain["params"])
+    ms_m, ms_p = mesh_run["step_ms"], plain["step_ms"]
+    losses = [round(float(x), 6) for x in mesh_run["losses"]]
+    print(f"{label} ({nvidia_smi_line()}): {len(losses)} graphed steps "
+          f"with mesh=make_mesh(1) against the same without it: first loss "
+          f"equal, largest relative loss gap {gap:.3g} (two runs without "
+          f"the mesh: {control:.3g}; gate {TRAJ_GAP_MULT:g} x that, or "
+          f"both 0), parameters' max abs difference after the last step "
+          f"{p_gap:.3g} (control {p_ctl:.3g}); {extra}ms a step graphed "
+          f"{statistics.median(ms_m):.2f} with the mesh, "
+          f"{statistics.median(ms_p):.2f} without (medians; "
+          f"{[round(x, 1) for x in ms_m]} / {[round(x, 1) for x in ms_p]}"
+          f"); the mesh run's captures {mesh_run['captures']} ms; a "
+          f"replay's host calls {mesh_run['host']} with, {plain['host']} "
+          f"without; on the device a replay {mesh_run['nccl']} with, "
+          f"{plain['nccl']} without; peak memory "
+          f"{mesh_run['peak'] / 2 ** 30:.3f} / {plain['peak'] / 2 ** 30:.3f}"
+          f" GiB; whole calls {mesh_run['whole_s']:.1f} / "
+          f"{plain['whole_s']:.1f} s; launches {mesh_run['launches']}; "
+          f"losses {losses}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3279,7 +3587,10 @@ def main() -> int:
         by_path["render views"] = phase_views(torch, d, s1_model, s1_data,
                                               stepsize)
         del s1_model
-        by_path.update(phase_stage2(torch, s1_data, d, nerf_config))
+        s2_paths, s2_ctx = phase_stage2(torch, s1_data, d, nerf_config)
+        by_path.update(s2_paths)
+        by_path.update(phase_mesh(torch, s2_ctx, s1_data, d))
+        del s2_ctx
     by_path["cli"] = phase_cli(torch)
 
     print(json.dumps({"kernels": report.json_rows(by_path)}))

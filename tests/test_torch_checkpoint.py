@@ -81,7 +81,9 @@ def test_port_imports_no_jax(tmp_path, scene):
     gradient, the chamfer helpers, the NDC sampler, the TV loss,
     activate_density, poc_dim and the camera, then the stage-2 half: the thinning library, the
     curriculum sampler, the export of that stage-1 model (skeletonizer
-    included) and two train_pcd steps, then the command line (both stages
+    included) and two train_pcd steps, one of them again on a one-rank
+    gloo mesh (``apnerf_torch.parallel`` and its rank module ``ranks``:
+    the same first loss), then the command line (both stages
     of a micro config on a scene that ``generate_scene`` writes, without
     the tensorboard writer: TensorFlow's tensorboard imports jax) and
     ``load_data`` of each dataset format, in a fresh interpreter: neither
@@ -209,6 +211,16 @@ def test_port_imports_no_jax(tmp_path, scene):
         "    (np.asarray(c1.xyz_min), np.asarray(c1.xyz_max)), n_iters=2,\n"
         "    log_every=1, sample_budget=16, device='cpu')\n"
         "assert len(s2['loss']) == 2 and np.isfinite(s2['loss']).all()\n"
+        "from apnerf_torch import parallel\n"
+        "from apnerf_torch.parallel import ranks\n"
+        f"with ranks.local_group({str(tmp_path)!r}) as mesh:\n"
+        "    assert isinstance(mesh, parallel.Mesh) and mesh.world == 1\n"
+        "    _, _, _, s3 = stage2.train_pcd(\n"
+        "        cfg, scene, art['canonical'], art['skeleton'],\n"
+        "        params_to_jax(m1.state_dict()), c1,\n"
+        "        (np.asarray(c1.xyz_min), np.asarray(c1.xyz_max)), n_iters=1,\n"
+        "        log_every=1, sample_budget=16, device='cpu', mesh=mesh)\n"
+        "assert s3['loss'][0] == s2['loss'][0]\n"
         "import json, os, pickle\n"
         "from apnerf_torch.config import load_config\n"
         "from apnerf_torch.data import synthetic\n"

@@ -13,7 +13,8 @@ port's run directory.
   frames written, equal to the port's ``cli.repose`` on the same pruned
   state (held against the JAX repose by test_torch_render.py), and
   ``canonical_skeleton.png``; ``--repose_pcd`` without ``--render_pcd``
-  takes the point model; ``--render_devices 2`` raises.
+  takes the point model; ``--render_devices 2`` raises on the CPU (one
+  process a CUDA card).
 * Without imageio, cv2, matplotlib and tensorboard (made unimportable in
   a fresh interpreter) the render writes its PNGs, ``results.txt`` and
   the animated-PNG video.
@@ -193,7 +194,8 @@ def test_fused_agg_renders_no_weight_images(runs, monkeypatch):
 
 
 def test_render_devices_raise(runs):
-    with pytest.raises(NotImplementedError):
+    # one process a CUDA card: on the CPU there is none
+    with pytest.raises(RuntimeError, match="CUDA card"):
         port_cli(runs["dirs"]["port"], EVAL + ["--render_devices", "2"])
 
 

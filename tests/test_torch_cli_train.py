@@ -25,7 +25,7 @@ device; the JAX package and the port in directories of their own).
   ``temporalpoints_last.pkl`` the state arrays equal and every parameter
   group within 4 lr at most and 0.1 lr on average
   (test_torch_stage2_model.py's bound for four steps).
-* ``--train_devices 2`` raises ``NotImplementedError``.
+* ``--train_devices 2`` raises on the CPU (one process a CUDA card).
 """
 import pickle
 import shutil
@@ -224,7 +224,8 @@ def test_second_stage_vs_jax(runs):
 
 
 def test_train_devices_raise(runs):
-    with pytest.raises(NotImplementedError):
+    # one process a CUDA card: on the CPU there is none
+    with pytest.raises(RuntimeError, match="CUDA card"):
         port_cli(runs["dirs"]["port"], ["--first_stage_only",
                                         "--train_devices", "2"])
 

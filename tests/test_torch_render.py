@@ -28,6 +28,7 @@ from apnerf.render import render as jrender, renderers as jrenderers
 from apnerf_torch import cli as tcli
 from apnerf_torch.models import temporal_points as ttp
 from apnerf_torch.models import tineuvox as ttv
+from apnerf_torch.parallel import ranks
 from apnerf_torch.render import lpips as tlpips, metrics as tmetrics
 from apnerf_torch.render import render as trender, renderers as trenderers
 from apnerf_torch.utils import checkpoint as tck
@@ -301,10 +302,11 @@ def _tiny_backbone():
     return jcfg, params, tck.tineuvox_from_jax(kw, tree, device="cpu")
 
 
-def test_backbone_renderer_vs_jax():
+def test_backbone_renderer_vs_jax(tmp_path):
     """``make_backbone_renderer`` over a tiny TiNeuVox, 2 views of 10 x 12
     from inside the bbox (a face would make the in-bbox test fp-fragile
-    between programs), in 50-ray chunks: rgb and depth at 1e-5."""
+    between programs), in 50-ray chunks: rgb and depth at 1e-5; on a
+    one-rank mesh equal to the render without one."""
     jcfg, params, model = _tiny_backbone()
     n, h, w = 2, 10, 12
     poses = np.repeat(np.eye(4, dtype=np.float32)[None], n, 0)
@@ -327,9 +329,15 @@ def test_backbone_renderer_vs_jax():
     np.testing.assert_allclose(got["rgbs"], want["rgbs"], rtol=0, atol=1e-5)
     np.testing.assert_allclose(got["depths"], want["depths"], rtol=0,
                                atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        trenderers.make_backbone_renderer(model, step, near, far, bg,
-                                          mesh=object())
+    # the same views on a one-rank mesh (a gloo group in this process):
+    # the chunk split and the view's all-gather leave them equal
+    with ranks.local_group(str(tmp_path)) as mesh:
+        mview = trenderers.make_backbone_renderer(model, step, near, far, bg,
+                                                  mesh=mesh)
+        meshed = trender.render_viewpoints(mview, poses, HW, Ks, times,
+                                           device="cpu", **kw)
+    for key in ("rgbs", "depths"):
+        np.testing.assert_array_equal(meshed[key], got[key], err_msg=key)
 
 
 def test_repose_is_seeded(scene, tmp_path):

@@ -23,6 +23,7 @@ from apnerf.utils import checkpoint as jck
 from apnerf_torch.data import rays as trays
 from apnerf_torch.data.synthetic import make_scene
 from apnerf_torch.models import tineuvox as tt
+from apnerf_torch.parallel.mesh import Mesh
 from apnerf_torch.train import stage1 as ts1
 from apnerf_torch.train.masked_adam import MaskedAdam
 from apnerf_torch.utils import checkpoint as tck
@@ -242,13 +243,22 @@ def test_scene_rep_reconstruction_vs_jax(scene, monkeypatch, tmp_path):
     np.testing.assert_allclose(tstats["loss"], jstats["loss"], rtol=1e-4)
 
 
-@pytest.mark.parametrize("train,mesh", [({}, "mesh")])
+def _mesh_of(world):
+    """A stand-in mesh: the checks below raise before any collective."""
+    return Mesh(None, 0, world, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("train,mesh", [
+    pytest.param({}, _mesh_of(3), id="train0-mesh"),
+    pytest.param({"ray_microbatch": 2}, _mesh_of(2), id="microbatch-mesh")])
 def test_unported_paths_raise(train, mesh):
-    """The multi-device mesh raises instead of running something else
-    (ray microbatching is ported: tests/test_torch_microbatch.py)."""
+    """The mesh refuses what the JAX package refuses, before it reads the
+    data: N_rand (64) that does not divide over the ranks, and ray
+    microbatching, its alternative (the mesh runs:
+    tests/test_torch_parallel_train.py)."""
     cfg = _tiny_cfg()
     cfg.train_config.update(train)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         ts1.scene_rep_reconstruction(cfg, {}, mesh=mesh, device="cpu")
 
 

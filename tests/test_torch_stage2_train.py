@@ -24,9 +24,9 @@ render the same samples (the JAX CPU path in another order).
 * ``max_steps`` reaches ``build_model``: the model config of a one-step
   run equals the JAX ``build_model``'s at the same ``max_steps`` and
   budget (the budget capped at ``max_steps`` below it).
-* ``mesh`` raises ``NotImplementedError`` (``tensorboard_path``, once
-  unported too, is held against the JAX package in
-  test_torch_stage2_previews.py).
+* a ``mesh`` that ``N_rand`` does not divide over raises ``ValueError``
+  (the mesh runs: test_torch_parallel_train.py; ``tensorboard_path`` is
+  held against the JAX package in test_torch_stage2_previews.py).
 """
 import dataclasses
 import re
@@ -41,6 +41,7 @@ from apnerf.data import rays as jrays
 from apnerf.train import stage2 as js2
 from apnerf_torch.data import rays as trays
 from apnerf_torch.data.synthetic import make_scene
+from apnerf_torch.parallel.mesh import Mesh
 from apnerf_torch.train import stage2 as ts2
 from apnerf_torch.utils.checkpoint import params_from_jax
 from torch_stage2_scene import artifacts, backbone, config  # noqa
@@ -151,7 +152,11 @@ def test_train_pcd_max_steps(setup, max_steps):
     assert np.isfinite(stats["loss"]).all()
 
 
-@pytest.mark.parametrize("kw", [dict(mesh="mesh")])
+@pytest.mark.parametrize("kw", [dict(mesh=Mesh(None, 0, 3,
+                                                torch.device("cpu")))])
 def test_train_pcd_unported_options_raise(setup, kw):
-    with pytest.raises(NotImplementedError):
+    """A mesh that N_rand (64) does not divide over raises before the
+    model is built, as the JAX package asserts (the mesh runs:
+    tests/test_torch_parallel_train.py)."""
+    with pytest.raises(ValueError):
         run_port(setup, n_iters=1, **kw)
