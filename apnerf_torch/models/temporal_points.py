@@ -1297,17 +1297,30 @@ def simplify_skeleton(model: TemporalPoints, state, times,
 # The training losses (reference lib/temporalpoints.py:714-800)
 # ----------------------------------------------------------------------
 
+def neighbour_rows(x, nn_i) -> torch.Tensor:
+    """``x[nn_i]`` for the k-NN indices ``nn_i [P, k]`` through
+    ``index_select``, whose backward sums each row's k gradients with
+    ``index_add_``, in a fixed order on the CPU. Indexing's backward is
+    ``index_put_(accumulate=True)``, which on the CPU adds from several
+    threads at once above 32,768 elements, so that two runs of a step
+    differ in the last bits."""
+    rows = x.index_select(0, nn_i.reshape(-1))
+    return rows.reshape(*nn_i.shape, *x.shape[1:])
+
+
 def arap_loss(state, warped_pcd, eps: float = 1e-6) -> torch.Tensor:
     """As-rigid-as-possible: summed change of the canonical k-NN distances
     after the warp."""
-    warped_nn = torch.sqrt(((warped_pcd[:, None, :]
-                             - warped_pcd[state["nn_i"]]) ** 2).sum(-1) + eps)
+    nn = neighbour_rows(warped_pcd, state["nn_i"])
+    warped_nn = torch.sqrt(((warped_pcd[:, None, :] - nn) ** 2).sum(-1)
+                           + eps)
     return (state["nn_distance"] - warped_nn).abs().sum()
 
 
 def neighbour_weight_tv_loss(state, lbs_weights) -> torch.Tensor:
     """Mean absolute skinning-weight difference to the k-NN neighbours."""
-    return (lbs_weights[:, None, :] - lbs_weights[state["nn_i"]]).abs().mean()
+    nn = neighbour_rows(lbs_weights, state["nn_i"])
+    return (lbs_weights[:, None, :] - nn).abs().mean()
 
 
 def weight_sparsity_loss(lbs_weights, eps: float = 1e-6) -> torch.Tensor:

@@ -40,8 +40,18 @@ from apnerf_torch.models import temporal_points as ttp
 from apnerf_torch.train import stage2 as ts2
 from apnerf_torch.train.masked_adam import MaskedAdam
 from apnerf_torch.utils.checkpoint import model_from_jax, params_from_jax
-from torch_stage2_scene import (FAR, H, NEAR, W, artifacts, backbone,  # noqa
-                                batch_arrays, camera, config, torch_batch)
+from torch_stage2_scene import (FAR, H, NEAR, W, absorb_first_vml_call,  # noqa
+                                artifacts, backbone, batch_arrays, camera,
+                                config, torch_batch)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _first_vml_call():
+    """MKL's first parallel vector-math call of a process may come back
+    at 12 bits in one thread's chunk (``absorb_first_vml_call``); in this
+    module it was the canonical k-NN distances' square root, which moved
+    step 1's ARAP term by 0.24%."""
+    absorb_first_vml_call()
 
 
 def test_build_model_vs_jax():

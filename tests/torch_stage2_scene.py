@@ -28,6 +28,27 @@ H = W = 400
 NEAR, FAR = 0.5, 6.0
 
 
+def absorb_first_vml_call():
+    """Run one multi-threaded ``torch.sqrt`` on the CPU and discard it.
+
+    PyTorch's CPU build sends float ``sqrt``, ``exp`` and the like to
+    MKL's vector math library, split over the OpenMP threads. In about one
+    fresh process in ten, the first such call after a parallel region
+    returns one thread's chunk at about 12 bits (relative errors up to
+    3e-4, as a hardware reciprocal square root estimate), whatever the
+    function; later calls are right, and with ``MKL_CBWR=COMPATIBLE`` or
+    ``MKL_NUM_THREADS=1`` the first is right too. The fault is outside
+    both packages, and once a process: after a parallel sort, a ``sqrt``
+    of 2^20 floats over all 8 OpenMP threads (MKL 2024.2) had one
+    thread's chunk wrong in 6 of 30 fresh processes, and in none of 30
+    each when a discarded ``sqrt`` of 2,048 (one thread's), 2^16 or 2^19
+    floats came first. A module whose results must not carry it calls
+    this first, so that the faulty call is this one."""
+    x = torch.rand(1 << 16, generator=torch.Generator().manual_seed(0))
+    torch.sort(x.view(64, -1), dim=1)      # the threads' parallel region
+    torch.sqrt(x + 0.5)
+
+
 def artifacts():
     """(canonical, skeleton) in the export pickles' schema."""
     rng = np.random.default_rng(0)
