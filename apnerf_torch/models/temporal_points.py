@@ -1211,6 +1211,19 @@ def forward(model: TemporalPoints, state, rays_o, rays_d, viewdirs, t=None,
     return out
 
 
+FILL_KEYS = ("active_demand", "active_budget", "pass_demand", "pass_budget")
+
+
+def budget_fill(rows: torch.Tensor) -> torch.Tensor:
+    """How full the static budgets ran over the ``budget_audit`` rows
+    ``rows`` [..., 4] (active demand, active budget, passing demand,
+    passing budget): [4], summed over the rows, of min(active demand,
+    active budget), the active budget, min(passing demand, passing
+    budget) and the passing budget (``FILL_KEYS``)."""
+    r = rows.reshape(-1, 2, 2)
+    return torch.minimum(r, r[..., 1:]).sum(0).reshape(4)
+
+
 def project_points(points: torch.Tensor, c2w: torch.Tensor,
                    K: torch.Tensor) -> torch.Tensor:
     """3D -> 2D projection: points [N, 3], c2w [4, 4], K [3, 3] -> [N, 2]

@@ -18,7 +18,7 @@ import torch
 from .. import resolve_device
 from ..data.rays import pixels_to_rays
 from ..parallel import mesh as pmesh
-from ..utils import png
+from ..utils import png, profiling
 from . import metrics
 
 try:
@@ -68,32 +68,49 @@ def render_image(render_chunk: Callable, K, c2w, H: int, W: int,
 
     ``async_out``: return ``finalize() -> result`` instead of the result.
     On the image path the outputs' copies to the host are only queued, so
-    that the caller can queue the next view before it reads this one."""
+    that the caller can queue the next view before it reads this one.
+
+    Spans of the image path (``utils.profiling``), one unit a frame:
+    ``render.frame`` from the call to the result on the host, and in it
+    ``render.readback`` (the copies queued), then in ``finalize``
+    ``render.wait`` (the wait on the device), ``render.host_copy`` and
+    ``render.finish``."""
     device = resolve_device(device)
     n = H * W
     keys = ("rgb_marched", "depth") + tuple(extra_keys)
     finish = getattr(render_chunk, "finish", None)
     image_fn = getattr(render_chunk, "image_fn", None)
     if image_fn is not None:
-        out = image_fn(K, c2w, H, W, chunk, inverse_y, flip_x, flip_y)
-        host, done = _read_back({k: v for k, v in out.items()
-                                 if (k in keys or k in VIEW_KEYS)
-                                 and torch.is_tensor(v)})
+        frame = profiling.span("render.frame", "frame")
+        with frame:
+            out = image_fn(K, c2w, H, W, chunk, inverse_y, flip_x, flip_y)
+            with profiling.scope("render.readback"):
+                host, done = _read_back({k: v for k, v in out.items()
+                                         if (k in keys or k in VIEW_KEYS)
+                                         and torch.is_tensor(v)})
 
         def finalize():
-            if done is not None:
-                done.synchronize()
-            # copied out of the pinned buffers, which go back to the cache
-            arrays = {k: np.array(v.numpy()) for k, v in host.items()}
-            result = {}
-            for k in keys:
-                if k in arrays:
-                    v = arrays[k]
-                    v = v.reshape(-1, *v.shape[2:])[:n]
-                    result[k] = v.reshape(H, W, *v.shape[1:])
-            if finish is not None:
-                result.update(finish({k: arrays[k] for k in VIEW_KEYS
-                                      if k in arrays}))
+            with frame:
+                with profiling.scope("render.wait", mirror=True):
+                    if done is not None:
+                        done.synchronize()
+                # copied out of the pinned buffers, which go back to the
+                # cache
+                with profiling.scope("render.host_copy", mirror=True):
+                    arrays = {k: np.array(v.numpy())
+                              for k, v in host.items()}
+                result = {}
+                for k in keys:
+                    if k in arrays:
+                        v = arrays[k]
+                        v = v.reshape(-1, *v.shape[2:])[:n]
+                        result[k] = v.reshape(H, W, *v.shape[1:])
+                if finish is not None:
+                    with profiling.scope("render.finish", mirror=True):
+                        result.update(finish({k: arrays[k]
+                                              for k in VIEW_KEYS
+                                              if k in arrays}))
+            frame.close()
             return result
 
         return finalize if async_out else finalize()

@@ -35,6 +35,7 @@ from ..models import temporal_points as tp
 from ..models import tineuvox
 from ..ops.marching import composite
 from ..parallel import mesh as pmesh
+from ..utils import profiling
 # the graph machinery the render shares with training, importable here
 from ..utils.graphs import GraphedCall, Graphs, load_static  # noqa: F401
 
@@ -165,6 +166,9 @@ def make_backbone_renderer(model: tineuvox.TiNeuVox, stepsize, near, far, bg,
     return for_view
 
 
+BUDGET_COUNTERS = tuple(f"budget.render.{k}" for k in tp.FILL_KEYS)
+
+
 def _warn_audit(audit) -> None:
     """Budget-audit warning from one [act_demand, act_granted, pass_demand,
     pass_granted] row (a renderer prints it once in its lifetime)."""
@@ -205,8 +209,11 @@ def make_points_renderer(model: tp.TemporalPoints, state, near, far, bg,
     chunk graph and adds the frame's ``joints_warped``. With ``poses`` and
     ``Ks`` the view's ``finish()`` adds ``joints_2d`` and ``bones``. The
     budget audit warns once per renderer, over the worst chunk of its first
-    view. ``mesh``: the view's chunks split over the ranks (see the module
-    docstring)."""
+    view; while the recorder of ``utils.profiling`` is on, ``finish()``
+    adds the ``tp.budget_fill`` of every view's rows into the counters
+    ``budget.render.*`` and the image function's pose load is the span
+    ``render.pose``. ``mesh``: the view's chunks split over the ranks (see
+    the module docstring)."""
     pmesh.put_replicated(model, mesh, state)
     cfg = model.cfg
     dev = state["canonical_pcd"].device
@@ -252,10 +259,11 @@ def make_points_renderer(model: tp.TemporalPoints, state, near, far, bg,
                 rot_params=inp if use_rot else None)), (inp,)
 
         call = graphs.call(key, make)
-        if use_rot:
-            load_static(call.inputs[0], rot_params)
-        else:
-            call.inputs[0].fill_(float(t or 0.0))
+        with profiling.scope("render.pose"):
+            if use_rot:
+                load_static(call.inputs[0], rot_params)
+            else:
+                call.inputs[0].fill_(float(t or 0.0))
         return call()
 
     def for_view(i, t, rot_params=None):
@@ -295,6 +303,9 @@ def make_points_renderer(model: tp.TemporalPoints, state, near, far, bg,
                 joints = None
             else:
                 rows, joints = image["budget_audit"], image["joints_warped"]
+            if profiling.on():
+                profiling.count(BUDGET_COUNTERS,
+                                tp.budget_fill(torch.as_tensor(rows)))
             extras = {}
             if not for_view._audited and len(rows):
                 # the worst chunk of the whole view: the first chunk is

@@ -61,9 +61,9 @@ def eager_steps(made=None):
         step = stage2.make_train_step(
             model, state, cfg_train, optimizer, Ks, poses, H, W, near, far,
             bg, n_chamfer_views, inverse_y=inverse_y, flip_x=flip_x,
-            flip_y=flip_y)
+            flip_y=flip_y, full=True)
         inputs = stage2.step_inputs(n_rand, n_chamfer_views, Ks.device)
-        out = EagerStep(inputs, lambda: (step(inputs), None))
+        out = EagerStep(inputs, lambda: step(inputs))
         if made is not None:
             made.append(out)
         return out

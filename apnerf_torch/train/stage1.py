@@ -39,7 +39,10 @@ steps by a copy into the segment's static grid) and the Adam step sizes
 are static inputs. The TV switches ``tv_on`` / ``tv_dense`` are host flags
 that pick a branch of the step, so a segment keeps one graph for each
 setting it meets. On the CPU the same body runs eagerly;
-``make_train_step`` is the eager step, the yardstick.
+``make_train_step`` is the eager step, the yardstick. While the recorder of
+``utils.profiling`` is on, the loop records its spans, one unit a step:
+``stage1.draw``, ``stage1.segment`` (a new segment), ``stage1.occupancy``
+(a refresh, which reads the grid back) and ``stage1.log``.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ from ..ops import compaction, marching
 from ..ops.rays import get_rays_of_a_view
 from ..parallel import mesh as pmesh
 from ..utils import checkpoint as ckpt
+from ..utils import profiling
 from ..utils.graphs import GraphedStep
 from .masked_adam import MaskedAdam
 
@@ -451,6 +455,7 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
     stats: Dict[str, Any] = {"psnr": [], "loss": [], "seconds": []}
     t0 = time.time()
     for global_step in range(1 + start_step, n_iters + 1):
+        profiling.set_unit(("stage1", global_step))
         # a new segment when the graph would read a grid, an optimizer or
         # a parameter's storage that the step no longer uses
         half = global_step == step_to_half
@@ -468,16 +473,19 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
             occupancy_active = True
             rebuild = True
         if rebuild or half:
-            step_fn, optimizer = build_segment(
-                occupancy_active, None if rebuild else optimizer)
+            with profiling.scope("stage1.segment"):
+                step_fn, optimizer = build_segment(
+                    occupancy_active, None if rebuild else optimizer)
         refresh = occupancy_active and (rebuild
                                         or global_step % occ_every == 0)
-        if refresh:
-            occ = refresh_occupancy(model, stepsize)
         if occupancy_active and (refresh or half):
-            step_fn.inputs["occ"].copy_(occ)
+            with profiling.scope("stage1.occupancy"):
+                if refresh:
+                    occ = refresh_occupancy(model, stepsize)
+                step_fn.inputs["occ"].copy_(occ)
 
-        rgb, mval, tval, cam, pix = ray_index.gather(next(gen))
+        with profiling.scope("stage1.draw", mirror=True):
+            rgb, mval, tval, cam, pix = ray_index.gather(next(gen))
         tv_on = (w_tv > 0 and tv_after < global_step < tv_before
                  and global_step % tv_every == 0)
         # the graph's key: tv_dense matters only with tv_on
@@ -488,11 +496,13 @@ def scene_rep_reconstruction(cfg, data_dict, seed=0, n_iters=None,
              "pix": pix}, tv_key)
 
         if global_step % log_every == 0 or global_step == n_iters:
-            psnr = -10.0 * np.log10(max(float(mse), 1e-12))
+            with profiling.scope("stage1.log"):
+                loss, mse = float(loss), float(mse)
+            psnr = -10.0 * np.log10(max(mse, 1e-12))
             stats["psnr"].append(psnr)
-            stats["loss"].append(float(loss))
+            stats["loss"].append(loss)
             stats["seconds"].append(time.time() - t0)
-            print(f"stage1: iter {global_step:6d} | loss {float(loss):.6f} "
+            print(f"stage1: iter {global_step:6d} | loss {loss:.6f} "
                   f"| psnr {psnr:5.2f} | {time.time() - t0:.1f}s")
             if callback is not None:
                 callback(global_step, model, model.cfg, stats)

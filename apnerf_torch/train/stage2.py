@@ -20,7 +20,11 @@ the time, the sparsity switch, the chamfer views, the Adam step sizes) in
 static inputs that the host fills in stream order, so it draws step i + 1
 while the card runs step i; it reads back only at the log, checkpoint and
 preview steps. On the CPU the same body runs eagerly. ``make_train_step``
-is the eager step, the yardstick.
+is the eager step, the yardstick. While the recorder of ``utils.profiling``
+is on, the loop records its spans (``stage2.draw``, ``stage2.log``; the
+step's own in ``utils.graphs``), one unit a step, and adds each step's
+``tp.budget_fill`` of its budget-audit row, an output of the step, into
+the counters ``budget.train.*`` on the device.
 
 Host randomness draws from ``np.random.default_rng(seed)`` and the
 sampler's own generator in the JAX package's order, so both packages
@@ -76,12 +80,14 @@ from ..parallel import mesh as pmesh
 from ..render.render import write_video
 from ..render.renderers import weight_palette
 from ..utils import checkpoint as ckpt
+from ..utils import profiling
 from ..utils.graphs import GraphedStep
 from ..utils.samplers import InverseProportionalSampler, curriculum_window
 from .masked_adam import MaskedAdam
 
 CH_M = 3000   # mask pixels a chamfer view
 CH_N = 3000   # warped points projected for the chamfer
+BUDGET_COUNTERS = tuple(f"budget.train.{k}" for k in tp.FILL_KEYS)
 
 
 def build_model(cfg, canonical, skeleton, tineuvox_params, tineuvox_cfg,
@@ -170,12 +176,13 @@ def project_views(points, poses, Ks):
 def make_loss_fn(model: tp.TemporalPoints, state, cfg_train, Ks, poses,
                  H, W, near, far, bg, n_chamfer_views: int, inverse_y=False,
                  flip_x=False, flip_y=False, mesh=None):
-    """``loss_fn(batch) -> (loss, metrics)``: the stage-2 forward of the
-    batch's rays at its time and the weighted sum of the terms whose
-    weight is positive (``metrics`` holds each term and ``mse``).
-    ``mesh``: the forward's slot work split over the ranks, and the terms
-    that every rank computes whole counted once in the ranks' summed
-    gradient; the loss is the same on every rank."""
+    """``loss_fn(batch) -> (loss, metrics, audit)``: the stage-2 forward of
+    the batch's rays at its time and the weighted sum of the terms whose
+    weight is positive (``metrics`` holds each term and ``mse``; ``audit``
+    is the forward's ``budget_audit`` row). ``mesh``: the forward's slot
+    work split over the ranks, and the terms that every rank computes
+    whole counted once in the ranks' summed gradient; the loss is the same
+    on every rank."""
     w_render = float(cfg_train.get("weight_render", 0))
     w_arap = float(cfg_train.get("weight_arap", 0))
     w_tv = float(cfg_train.get("weight_tv", 0))
@@ -229,7 +236,7 @@ def make_loss_fn(model: tp.TemporalPoints, state, cfg_train, Ks, poses,
             metrics["chamfer2d"] = tp.batch_chamfer_2d(
                 proj, batch["chamfer_mask_pts"])
             loss = loss + w_cham2d * once(metrics["chamfer2d"])
-        return loss, metrics
+        return loss, metrics, res["budget_audit"]
 
     return loss_fn
 
@@ -238,25 +245,28 @@ def make_step_body(model: tp.TemporalPoints, state, cfg_train,
                    optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
                    n_chamfer_views: int, inverse_y=False, flip_x=False,
                    flip_y=False):
-    """``body(batch) -> (metrics, grads)``: the loss, its backward and the
-    masked-Adam update of the step that ``optimizer.advance()`` counted;
-    ``metrics`` detached (``loss`` included), ``grads`` the gradient of
-    each parameter by name (None where none reaches it). Under the
-    optimizer's mesh (``MaskedAdam(mesh=)``) the forward's slot work is
-    split over the ranks and ``grads`` are summed over them."""
+    """``body(batch) -> (metrics, grads, fill)``: the loss, its backward
+    and the masked-Adam update of the step that ``optimizer.advance()``
+    counted; ``metrics`` detached (``loss`` included), ``grads`` the
+    gradient of each parameter by name (None where none reaches it),
+    ``fill`` the forward's ``tp.budget_fill`` of its ``budget_audit`` row.
+    Under the optimizer's mesh
+    (``MaskedAdam(mesh=)``) the forward's slot work is split over the
+    ranks and ``grads`` are summed over them."""
     loss_fn = make_loss_fn(model, state, cfg_train, Ks, poses, H, W, near,
                            far, bg, n_chamfer_views, inverse_y=inverse_y,
                            flip_x=flip_x, flip_y=flip_y, mesh=optimizer.mesh)
 
     def body(batch):
         model.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch)
+        loss, metrics, audit = loss_fn(batch)
         loss.backward()
         grads = optimizer.reduce({n: p.grad
                                   for n, p in model.named_parameters()})
         optimizer.apply(grads)
         metrics["loss"] = loss
-        return {k: v.detach() for k, v in metrics.items()}, grads
+        return ({k: v.detach() for k, v in metrics.items()}, grads,
+                tp.budget_fill(audit))
 
     return body
 
@@ -264,18 +274,21 @@ def make_step_body(model: tp.TemporalPoints, state, cfg_train,
 def make_train_step(model: tp.TemporalPoints, state, cfg_train,
                     optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
                     n_chamfer_views: int, inverse_y=False, flip_x=False,
-                    flip_y=False):
+                    flip_y=False, full: bool = False):
     """``step(batch) -> metrics`` (detached, ``loss`` included): the loss,
     its backward and one masked-Adam update of ``model`` in place, run
     eagerly (the yardstick of ``make_graphed_step``; the parameters'
-    ``grad`` hold the step's gradients after it)."""
+    ``grad`` hold the step's gradients after it). ``full``: the step
+    returns ``make_step_body``'s whole ``(metrics, grads, fill)``, as the
+    graphed step does."""
     body = make_step_body(model, state, cfg_train, optimizer, Ks, poses, H,
                           W, near, far, bg, n_chamfer_views,
                           inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y)
 
     def step(batch):
         optimizer.advance()
-        return body(batch)[0]
+        out = body(batch)
+        return out if full else out[0]
 
     return step
 
@@ -301,8 +314,8 @@ def make_graphed_step(model: tp.TemporalPoints, state, cfg_train,
                       optimizer: MaskedAdam, Ks, poses, H, W, near, far, bg,
                       n_chamfer_views: int, n_rand: int, inverse_y=False,
                       flip_x=False, flip_y=False) -> GraphedStep:
-    """``step(batch) -> (metrics, grads)`` of ``make_step_body`` as one
-    CUDA-graph replay on a CUDA device (the first call: the step run
+    """``step(batch) -> (metrics, grads, fill)`` of ``make_step_body`` as
+    one CUDA-graph replay on a CUDA device (the first call: the step run
     eagerly, then captured), eagerly on the CPU. ``batch`` holds the
     step's host values by ``step_inputs`` key; each call loads them into
     the static inputs and advances the optimizer. The outputs are the
@@ -567,39 +580,45 @@ def train_pcd(cfg, data_dict, canonical, skeleton, tineuvox_params,
         stats: Dict[str, Any] = {"psnr": [], "loss": [], "terms": []}
         t0 = time.time()
         for global_step in range(1 + start_step, n_iters + 1):
-            t_max, t_min = curriculum_window(global_step, len(unique_times),
-                                             full_t_iter, canonical_idx)
-            rnd_i = sampler.sample(t_min, t_max)
-            t_key = float(unique_times[rnd_i])
-            b_lo, b_hi = ray_index.index_to_times[t_key]
-            sel = rng.integers(b_lo, b_hi, size=n_rand)
-            rgb, mval, _, cam, pix = ray_index.gather(sel)
-            batch = {
-                "rgb": rgb, "mask": mval, "t": t_key, "cam": cam, "pix": pix,
-                "sparsity_on": (1.0 if global_step >= weight_start_iter
-                                else 0.0),
-            }
-            if n_chamfer_views > 0:
-                img_rows = imgs_by_time[t_key]
-                pick = rng.permutation(len(img_rows))[:n_chamfer_views]
-                rows = img_rows[pick]
-                if pose_one_each:
-                    cams_sel = ray_index.img_cam[rows]
-                else:
-                    cams_sel = pick % len(data_dict["poses"])
-                mask_pts = np.stack([
-                    mask_pix[r][rng.integers(0, len(mask_pix[r]), CH_M)]
-                    for r in rows], 0)
-                batch["chamfer_poses"] = poses_np[cams_sel]
-                batch["chamfer_Ks"] = Ks_np[cams_sel]
-                batch["chamfer_mask_pts"] = mask_pts
-                batch["chamfer_pcd_idx"] = rng.integers(0, mcfg.n_points,
-                                                        CH_N)
+            profiling.set_unit(("stage2", global_step))
+            with profiling.scope("stage2.draw", mirror=True):
+                t_max, t_min = curriculum_window(
+                    global_step, len(unique_times), full_t_iter,
+                    canonical_idx)
+                rnd_i = sampler.sample(t_min, t_max)
+                t_key = float(unique_times[rnd_i])
+                b_lo, b_hi = ray_index.index_to_times[t_key]
+                sel = rng.integers(b_lo, b_hi, size=n_rand)
+                rgb, mval, _, cam, pix = ray_index.gather(sel)
+                batch = {
+                    "rgb": rgb, "mask": mval, "t": t_key, "cam": cam,
+                    "pix": pix,
+                    "sparsity_on": (1.0 if global_step >= weight_start_iter
+                                    else 0.0),
+                }
+                if n_chamfer_views > 0:
+                    img_rows = imgs_by_time[t_key]
+                    pick = rng.permutation(len(img_rows))[:n_chamfer_views]
+                    rows = img_rows[pick]
+                    if pose_one_each:
+                        cams_sel = ray_index.img_cam[rows]
+                    else:
+                        cams_sel = pick % len(data_dict["poses"])
+                    mask_pts = np.stack([
+                        mask_pix[r][rng.integers(0, len(mask_pix[r]), CH_M)]
+                        for r in rows], 0)
+                    batch["chamfer_poses"] = poses_np[cams_sel]
+                    batch["chamfer_Ks"] = Ks_np[cams_sel]
+                    batch["chamfer_mask_pts"] = mask_pts
+                    batch["chamfer_pcd_idx"] = rng.integers(
+                        0, mcfg.n_points, CH_N)
 
-            metrics, _ = step_fn(batch)
+            metrics, _, fill = step_fn(batch)
+            profiling.count(BUDGET_COUNTERS, fill)
 
             if global_step % log_every == 0 or global_step == n_iters:
-                terms = {k: float(v) for k, v in metrics.items()}
+                with profiling.scope("stage2.log"):
+                    terms = {k: float(v) for k, v in metrics.items()}
                 psnr = -10.0 * np.log10(max(terms["mse"], 1e-12))
                 stats["psnr"].append(psnr)
                 stats["loss"].append(terms["loss"])

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from . import profiling
 
 _NUMPY = {torch.float32: np.float32, torch.int64: np.int64,
           torch.int32: np.int32, torch.bool: np.bool_}
@@ -61,11 +62,15 @@ class GraphedCall:
     outputs are returned; the replays start at the next call. On the CPU
     (``pool`` None) every call runs ``body``. ``capture_ms`` is the
     capture's host time. ``thread_local``: the capture's error mode is
-    ``"thread_local"`` (a body with collectives), else the default."""
+    ``"thread_local"`` (a body with collectives), else the default.
+    ``key``: the call's key in its ``Graphs``, the attribute of its spans
+    (``graph.capture``; ``graph.replay``, the call of the graph, or of the
+    body on the CPU, with the replay's device time on a CUDA device)."""
 
     def __init__(self, body: Callable, inputs: tuple, pool=None,
-                 step: bool = False, thread_local: bool = False):
+                 step: bool = False, thread_local: bool = False, key=None):
         self.body = body
+        self.key = key
         self.inputs = inputs
         self.pool = pool
         self.step = step
@@ -76,12 +81,15 @@ class GraphedCall:
 
     def __call__(self, *args):
         if self.pool is None:
-            return self.body(*args)
+            with profiling.scope("graph.replay", self.key):
+                return self.body(*args)
         if self.replay is None:
-            first = self._capture(args)
+            with profiling.scope("graph.capture", self.key):
+                first = self._capture(args)
             if self.step:
                 return first
-        self.replay.replay()
+        with profiling.scope("graph.replay", self.key, device=True):
+            self.replay.replay()
         return self.out
 
     def _capture(self, args):
@@ -136,7 +144,8 @@ class Graphs:
         if key not in self.calls:
             self.calls[key] = GraphedCall(*make(), pool=self.pool,
                                           step=self.step,
-                                          thread_local=self.thread_local)
+                                          thread_local=self.thread_local,
+                                          key=key)
         return self.calls[key]
 
 
@@ -150,7 +159,8 @@ class GraphedStep:
     first call of a key is that step run eagerly, captured after. One
     ``GraphedStep`` is a segment: what changes the step's shapes, its
     parameters' storage or its optimizer starts a new one.
-    ``thread_local``: the body holds collectives (``GraphedCall``)."""
+    ``thread_local``: the body holds collectives (``GraphedCall``). Spans:
+    ``step.load`` (the batch into the static inputs), ``step.prepare``."""
 
     def __init__(self, body: Callable, inputs: Dict[str, torch.Tensor],
                  device, prepare: Optional[Callable] = None,
@@ -161,10 +171,12 @@ class GraphedStep:
         self.prepare = prepare
 
     def __call__(self, batch: Dict, key: tuple = ()):
-        for name, value in batch.items():
-            load_static(self.inputs[name], value)
+        with profiling.scope("step.load"):
+            for name, value in batch.items():
+                load_static(self.inputs[name], value)
         if self.prepare is not None:
-            self.prepare()
+            with profiling.scope("step.prepare"):
+                self.prepare()
         return self.graphs.call(key, lambda: (self.body(*key), ()))()
 
     @property

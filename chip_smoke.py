@@ -2719,7 +2719,7 @@ def stage2_batch(torch, data, index, n_points, n_rand, seed):
 
 def stage2_grads(torch, model, loss_fn, batch):
     model.zero_grad(set_to_none=True)
-    loss, _ = loss_fn(batch)
+    loss, _, _ = loss_fn(batch)
     loss.backward()
     torch.cuda.synchronize()
     return loss.detach().clone(), {
@@ -2973,7 +2973,7 @@ def phase_stage2(torch, data, ckpt_dir, stage1_cfg):
                 for i in range(TRAJ_STEPS + BOTH_WAYS_STEPS)]
 
         def graphed(b):
-            metrics, grads = gstep(b)
+            metrics, grads, _ = gstep(b)
             return metrics["loss"], grads
 
         def eager(b):

@@ -144,7 +144,7 @@ def _port_step(cfg, model, tstate, b, K, pose):
                                torch.tensor(K), torch.tensor(pose), H, W,
                                NEAR, FAR, 1.0, 1)
     model.zero_grad(set_to_none=True)
-    loss, metrics = loss_fn(torch_batch(b))
+    loss, metrics, _ = loss_fn(torch_batch(b))
     loss.backward()
     metrics["loss"] = loss
     return ({k: float(v.detach()) for k, v in metrics.items()},

@@ -323,9 +323,10 @@ def test_values_come_from_static_inputs(deterministic):
     topt = MaskedAdam(twin, cfg.pcd_train_config)
     batches = [_stage2_batch(3, 0.3, 0.0), _stage2_batch(4, 0.8, 1.0)]
     for i, b in enumerate(batches):
-        got, ggrads = step(b)
+        got, ggrads, gaudit = step(b)
         fresh, _ = _stage2_step(cfg, twin, tstate, K, pose, topt)
-        want, wgrads = fresh(b)
+        want, wgrads, waudit = fresh(b)
+        assert torch.equal(gaudit, waudit), i
         assert set(got) == set(want)
         for k in want:
             assert torch.equal(got[k], want[k]), (i, k)

@@ -182,7 +182,7 @@ def port_step(cfg, mcfg, params, b):
     loss_fn = ts2.make_loss_fn(model, state, cfg.pcd_train_config,
                                torch.tensor(K), torch.tensor(pose), H, W,
                                NEAR, FAR, 1.0, 1)
-    loss, metrics = loss_fn(torch_batch(b))
+    loss, metrics, _ = loss_fn(torch_batch(b))
     loss.backward()
     metrics["loss"] = loss
     grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
