@@ -55,6 +55,15 @@ SIGNATURES = {
     "procrustes_launch": [P, I, P, P, P, P, P],
     # G, U, S, V, P, dM, stream
     "procrustes_grad_launch": [P, P, P, P, I, P, P],
+    # grid, unit, M, n0, n1, n2, C, vec4, out, stream
+    "trilerp_launch": [P, P, I, I, I, I, I, I, P, P],
+    # grid, unit, gout, M, n0, n1, n2, C, vec4, dunit, keys, stream
+    "trilerp_grad_launch": [P, P, P, I, I, I, I, I, I, P, P, P],
+    # unit, gout, order, keys_sorted, M, n0, n1, n2, C, c0, CG, vec4, idx,
+    # upd, stream
+    "trilerp_rows_launch": [P, P, P, P, I, I, I, I, I, I, I, I, P, P, P],
+    # acc1, acc2, acc4, n0, n1, n2, C, c0, CG, dgrid, stream
+    "trilerp_fold_launch": [P, P, P, I, I, I, I, I, I, P, P],
 }
 
 _lib = None

@@ -14,6 +14,10 @@ package, samples whose cotangent is all zero (the unfilled slots of an
 active-sample budget, all at one position) are keyed out of range and
 dropped by K5: the sum is bit-for-bit the same, and they no longer pile up
 in one window of the kernel.
+
+``mult_dist_interp`` on CUDA tensors is kernel G1 (``kernels/trilerp.py``),
+which computes the same multi-scale sample and gradient without the padded
+and strided copies, the corner tables and the saved corners.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels import on_cpu, trilerp
 from ..kernels.scatter import sorted_window_accumulate
 from .consts import device_vector
 
@@ -157,7 +162,17 @@ def mult_dist_interp(grid: torch.Tensor, xyz: torch.Tensor, xyz_min,
     """Multi-scale (stride 1/2/4) trilinear features [..., 3C], channel
     order [fine | stride 2 | stride 4]; all scales take the same
     bbox-normalised coordinate on the 4k+1-padded grid (reference
-    ``TiNeuVox.mult_dist_interp``, the JAX package's per-scale path)."""
+    ``TiNeuVox.mult_dist_interp``). Kernel G1 (``kernels/trilerp.py``) on
+    CUDA tensors, the plain version on CPU tensors."""
+    if on_cpu(grid, xyz):
+        return mult_dist_interp_plain(grid, xyz, xyz_min, xyz_max)
+    return trilerp.mult_dist_interp_cuda(grid, xyz, xyz_min, xyz_max)
+
+
+def mult_dist_interp_plain(grid: torch.Tensor, xyz: torch.Tensor, xyz_min,
+                           xyz_max) -> torch.Tensor:
+    """Plain version of ``mult_dist_interp``, the JAX package's per-scale
+    path: the padded grid, its strided views, ``_interp_at_indices``."""
     g = pad_to_mult4(grid.float())
     unit = (xyz - xyz_min) / (xyz_max - xyz_min)
     outs = []

@@ -88,11 +88,11 @@ def eager_steps(made=None):
 
     def eager(model, cfg_train, optimizer, Ks, poses, H, W, near, far, bg,
               n_rand, inverse_y=False, flip_x=False, flip_y=False,
-              active_budget=None, occ_shape=None):
+              active_budget=None, occ_shape=None, n_micro=1):
         step = stage1.make_train_step(
             model, cfg_train, optimizer, Ks, poses, H, W, near, far, bg,
             inverse_y=inverse_y, flip_x=flip_x, flip_y=flip_y,
-            active_budget=active_budget)
+            active_budget=active_budget, n_micro=n_micro)
         inputs = stage1.step_inputs(n_rand, occ_shape, Ks.device)
         batch = {k: v for k, v in inputs.items() if k != "occ"}
 

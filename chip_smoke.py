@@ -61,7 +61,11 @@ and no result line is printed):
    ptxas' registers and spills of both kernels beside the earlier ones';
    then at 2^20 matrices, where bytes bind, the same times against the
    bound, every ``P1_BIG_STRIDE``-th matrix against float64 by the same
-   gate, all finite.
+   gate, all finite. G1 (stage 1's multi-scale grid sample) at the step's
+   shape: the forward and the grid gradient bit-equal to the plain path,
+   d/dxyz no further from float64 than the plain path's, a forward and
+   backward's launches, both captured in a CUDA graph; each kernel's time
+   against its bytes bound, beside the plain path and ``F.grid_sample``.
 4. train   -- stage 1 of the nerf family at full width (160^3 x 12 grid,
    defor_depth 5, net_width 128, 4096 rays a step) on a 6-view 400 x 400
    arm scene, ``scene_rep_reconstruction`` for ``TRAIN_STEPS`` steps, each
@@ -248,6 +252,11 @@ KERNELS = [  # name, source, TPU kernel it replaces (pl.pallas_call line)
     ("procrustes_grad", "apnerf_torch/csrc/procrustes.cu",
      "apnerf/ops/rotations.py:47 (no pl.pallas_call: the SVD's "
      "derivative)"),
+    # G1 replaces no TPU kernel: XLA's gathers of mult_dist_interp
+    ("trilerp", "apnerf_torch/csrc/trilerp.cu",
+     "apnerf/ops/grid.py:298 (no pl.pallas_call: XLA's corner gathers)"),
+    ("trilerp_grad", "apnerf_torch/csrc/trilerp.cu",
+     "apnerf/ops/grid.py:298 (no pl.pallas_call: the _corner_gather VJP)"),
 ]
 RENDER_KERNELS = ("knn_brute", "knn_count", "knn_radius", "featmlp")
 # K6's gates, from readings on an NVIDIA H100 80GB HBM3, 700 W. The control
@@ -592,8 +601,12 @@ def plain_kernels(featmlp=None, scatter=None, agg=None):
     ``scatter`` / ``agg`` replace K4's / K5's / K6's plain version (the
     controls)."""
     from apnerf_torch.kernels import agg as ag, featmlp as fm, \
-        knn_brute as kb, knn_cells as kc, procrustes as pk, scatter as sc
+        knn_brute as kb, knn_cells as kc, procrustes as pk, \
+        scatter as sc, trilerp as tl
+    from apnerf_torch.ops import grid as gridops
     with mock.patch.object(kb, "knn_brute_cuda", kb.knn_brute_plain), \
+            mock.patch.object(tl, "mult_dist_interp_cuda",
+                              gridops.mult_dist_interp_plain), \
             mock.patch.object(pk, "procrustes_cuda", pk.procrustes_plain), \
             mock.patch.object(pk, "procrustes_grad_cuda",
                               pk.procrustes_grad_plain), \
@@ -719,6 +732,7 @@ def phase_kernels(torch, pcd, report):
     phase_chain_shapes(torch, g)
     phase_scatter(torch, report)
     phase_procrustes(torch, report)
+    phase_trilerp(torch, report)
 
 
 # P1 (special Procrustes). Its inputs: 10^4 matrices, 2,000 each of exact
@@ -809,13 +823,15 @@ def grad64(m, g):
     return u @ kk @ v.transpose(0, 2, 1)
 
 
-def ptxas_usage(text: str) -> dict:
+def ptxas_usage(text: str,
+                pattern: str = r"(procrustes(?:_grad)?_kernel)") -> dict:
     """Kernel -> "N registers, N bytes stack frame, N / N bytes spill
-    stores / loads" for P1's two kernels, from ``-Xptxas -v`` output."""
+    stores / loads" for the kernels whose mangled name ``pattern`` matches
+    (P1's two by default), from ``-Xptxas -v`` output."""
     out, fn = {}, None
     for line in text.splitlines():
         if "Function properties for" in line:
-            m = re.search(r"(procrustes(?:_grad)?_kernel)", line)
+            m = re.search(pattern, line)
             fn = m.group(1) if m else None
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -996,6 +1012,227 @@ def phase_procrustes(torch, report):
           f"{procrustes_text(e)} (finite: all {n})", flush=True)
     if not procrustes_ok(e):
         raise AssertionError(f"procrustes at P={n}: {e}")
+
+
+# G1 (the stage-1 multi-scale trilinear sample) at the stage-1 step's
+# shape: G1_M samples on a G1_SHAPE x G1_C grid, G1_LIVE of them along rays
+# (some leaving the bbox), the rest at one point with a zero cotangent (an
+# active-sample budget's unfilled slots). G1_LIVE is the share of rows with
+# a nonzero cotangent in the benchmark's zju-stage1-train steps, counted
+# inside the graphed step over its measured window: 7.3% and 8.4% on two
+# seeds (NVIDIA H100 80GB HBM3, 700 W). A step launches G1's forward, its
+# backward's three kernels and K5 three times (C <= 12: one channel chunk).
+G1_M = 1 << 20
+G1_SHAPE = (160, 160, 160)
+G1_C = 12
+G1_LIVE = 0.08
+G1_STEP_LAUNCHES = {"trilerp": 1, "trilerp_grad": 3, "scatter": 3}
+G1_KERNELS = ("trilerp_kernel", "trilerp_grad_kernel", "trilerp_rows_kernel",
+              "trilerp_fold_kernel")
+
+
+def trilerp_inputs(torch, seed=21):
+    """G1's inputs at the step's shape: (grid, xyz, lo, hi, cotangent)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    grid = 0.1 * torch.randn(*G1_SHAPE, G1_C, generator=g)
+    n_live = int(G1_LIVE * G1_M)
+    n_rays = 4096
+    per_ray = -(-n_live // n_rays)
+    start = torch.rand(n_rays, 3, generator=g) * 1.1 - 0.05
+    d = torch.randn(n_rays, 3, generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.arange(per_ray) / per_ray
+    unit = (start[:, None] + d[:, None] * t[None, :, None]).reshape(-1, 3)
+    unit = torch.cat([unit[:n_live], unit[:1].expand(G1_M - n_live, 3)])
+    lo, hi = torch.tensor([-1.0, -1.2, -0.8]), torch.tensor([1.0, 0.9, 1.3])
+    xyz = lo + unit * (hi - lo)
+    cot = torch.randn(G1_M, 3 * G1_C, generator=g)
+    cot[n_live:] = 0.0
+    return tuple(x.to(DEVICE) for x in (grid, xyz, lo, hi, cot))
+
+
+def trilerp_dunit64(torch, grid, unit, g):
+    """d/dunit of ``sum(out * g)`` for G1's sample, in float64 at the
+    float32 cell coordinates that G1 and the plain path both take (``u =
+    unit * last``, ``frac = u - floor(u)``, in float32): the yardstick of
+    their d/dunit, free of the float32 coordinates, which neither can
+    improve on."""
+    from apnerf_torch.kernels.trilerp import STRIDES
+    from apnerf_torch.ops.grid import _corner_tables, pad_to_mult4
+    gp = pad_to_mult4(grid.detach().double())
+    C = grid.shape[3]
+    unit = unit.detach()
+    out = torch.zeros(unit.shape, dtype=torch.float64, device=unit.device)
+    for si, s in enumerate(STRIDES):
+        gs = gp[::s, ::s, ::s]
+        dims = gs.shape[:3]
+        last = torch.tensor([n - 1.0 for n in dims], device=unit.device)
+        u = unit * last
+        i0f = torch.floor(u)
+        i0 = i0f.to(torch.int64)
+        frac = (u - i0f).double()
+        lins, _ = _corner_tables(dims, i0, frac)
+        gsc = g[:, si * C:(si + 1) * C].double()
+        dw = (gs.reshape(-1, C)[lins] * gsc[:, None, :]).sum(-1)   # [M, 8]
+        for k in range(8):
+            d = (k >> 2 & 1, k >> 1 & 1, k & 1)
+            w = [frac[:, a] if d[a] else 1.0 - frac[:, a] for a in range(3)]
+            ok = torch.ones_like(dw[:, k], dtype=torch.bool)
+            for a in range(3):
+                ok &= (i0[:, a] + d[a] >= 0) & (i0[:, a] + d[a] < dims[a])
+            term = torch.where(ok, dw[:, k], torch.zeros_like(dw[:, k]))
+            for a in range(3):
+                b, c = (x for x in range(3) if x != a)
+                sign = 1.0 if d[a] else -1.0
+                out[:, a] += sign * term * w[b] * w[c] * (dims[a] - 1)
+    return out
+
+
+def phase_trilerp(torch, report):
+    """G1 at the stage-1 step's shape against the plain path on the card:
+    the forward and the grid gradient bit-equal (the zero pattern too,
+    which the masked Adam reads), d/dxyz no further from float64 (at the
+    float32 cell coordinates both take, ``trilerp_dunit64``) than the
+    plain path's own; the launches of a forward and backward; whether both
+    capture into a CUDA graph. Times: the forward a call, queued, in a CUDA
+    graph; the whole backward; each kernel's device time from the
+    profiler; the bytes bound of the forward and of the backward's three
+    kernels; beside the plain path and ``F.grid_sample`` on the padded,
+    strided grids (the yardstick, which the port never calls)."""
+    import torch.nn.functional as F
+    from apnerf_torch import kernels
+    from apnerf_torch.kernels import build, trilerp as tl
+    from apnerf_torch.ops import grid as gridops
+    log = build.BUILD_DIR / "build.log"
+    usage = ptxas_usage(log.read_text() if log.exists() else "",
+                        r"(trilerp_(?:grad_|rows_|fold_)?kernel(?:ILi\dEE)?)")
+    for name, text in sorted(usage.items()) or [("trilerp", "not found")]:
+        print(f"build: ptxas {name}: {text}", flush=True)
+    grid, xyz, lo, hi, cot = trilerp_inputs(torch)
+    M, C = xyz.shape[0], grid.shape[3]
+
+    def fwd(fn):
+        with torch.no_grad():
+            return fn(grid, xyz, lo, hi)
+
+    gr = grid.clone().requires_grad_(True)
+    xr = xyz.clone().requires_grad_(True)
+
+    def fwd_bwd(fn):
+        # the output detached: no graph outlives a call (a leaf's gradient
+        # node made on one stream would sync a capture on another with it)
+        out = fn(gr, xr, lo, hi)
+        dg, dx = torch.autograd.grad(out, (gr, xr), cot)
+        return out.detach(), dg, dx
+
+    kernels.reset_launches()
+    out_k, dg_k, dx_k = fwd_bwd(tl.mult_dist_interp_cuda)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    out_p, dg_p, dx_p = fwd_bwd(gridops.mult_dist_interp_plain)
+    dx64 = trilerp_dunit64(torch, grid, (xyz - lo) / (hi - lo), cot) / \
+        (hi - lo).double()
+    err_k = float((dx_k.double() - dx64).abs().max())
+    err_p = float((dx_p.double() - dx64).abs().max())
+    fwd_equal = torch.equal(out_k, out_p)
+    grad_equal = torch.equal(dg_k, dg_p)
+    zeros_equal = torch.equal(dg_k == 0, dg_p == 0)
+    n_diff = int((dg_k != dg_p).sum())
+    # the rows' errors, measured: the forward and the grid gradient against
+    # the plain path (0 where bit-equal), d/dxyz against it too
+    out_gap = float((out_k - out_p).abs().max())
+    dg_gap = float((dg_k - dg_p).abs().max())
+    dx_gap = float((dx_k - dx_p).abs().max())
+    del out_p, dg_p, dx_p, dx64
+    cap, why = capture_ok(torch, lambda: fwd_bwd(tl.mult_dist_interp_cuda))
+
+    ms, _ = cuda_ms(lambda: fwd(tl.mult_dist_interp_cuda))
+    q_f = queued_ms(lambda: fwd(tl.mult_dist_interp_cuda))
+    g_f = graphed_ms(lambda: fwd(tl.mult_dist_interp_cuda), launches=5)
+    fb_ms, _ = cuda_ms(lambda: fwd_bwd(tl.mult_dist_interp_cuda))
+    pms, _ = cuda_ms(lambda: fwd(gridops.mult_dist_interp_plain))
+    pfb_ms, _ = cuda_ms(lambda: fwd_bwd(gridops.mult_dist_interp_plain), 3)
+    gp = gridops.pad_to_mult4(grid)
+    views = [gp[::s, ::s, ::s].permute(3, 0, 1, 2)[None].contiguous()
+             .requires_grad_(True) for s in tl.STRIDES]
+    unit = ((xyz - lo) / (hi - lo)).requires_grad_(True)
+
+    def library(backward):
+        coords = (2.0 * unit - 1.0).flip(-1).reshape(1, -1, 1, 1, 3)
+        outs = [F.grid_sample(v, coords, align_corners=True) for v in views]
+        if backward:
+            torch.autograd.grad(outs, [*views, unit],
+                                [torch.ones_like(o) for o in outs])
+        return outs
+    lms, _ = cuda_ms(lambda: [x.detach() for x in library(False)])
+    lfb_ms, _ = cuda_ms(lambda: library(True))
+    del views, gp
+    # each kernel's device time in one forward and backward
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fwd_bwd(tl.mult_dist_interp_cuda)
+        torch.cuda.synchronize()
+    dev_ms = {}
+    for e in prof.key_averages():
+        name = next((k for k in G1_KERNELS if k in e.key), None)
+        if name is None:
+            name = "K5" if any(m in e.key for m in (
+                "plan_kernel", "accumulate_kernel", "combine_kernel")) \
+                else "other"
+        dev_ms[name] = dev_ms.get(name, 0.0) + e.device_time_total / 1e3
+    n_live = int((cot != 0).any(-1).sum())
+    geo = tl.geometry(grid.shape)
+    cells = sum(n for _, n, _ in geo)
+    # what the function has to move: forward, read the coordinates and the
+    # grid, write the output; backward, read the coordinates, the cotangent
+    # and the grid, write the grid gradient and d/dunit
+    f_bytes = M * 12 + nbytes(grid) + M * 3 * C * 4
+    b_bytes = M * 12 + nbytes(cot) + nbytes(grid) + nbytes(grid) + M * 12
+    # what this design moves besides, each written once and read once: the
+    # keys and their sort, K5's sorted rows (live ones) and index, and
+    # K5's [8C, n_cells] accumulators that the fold reads
+    keys_bytes = 2 * 3 * M * (4 + 4 + 8)    # keys, sorted keys, order
+    rows_bytes = 2 * 3 * n_live * (8 * C + 1) * 4
+    acc_bytes = 2 * 8 * C * cells * 4
+    ops = 3 * M * (8 * C * 2 + 40)
+    b_ms = sum(dev_ms.get(k, 0.0) for k in G1_KERNELS[1:])
+    bwd_ms = fb_ms - ms
+    report.add("trilerp", f"M={M} grid={G1_SHAPE}x{C}", ms, pms, out_gap,
+               f_bytes, ops, "fp32", library_ms=lms)
+    report.add("trilerp_grad", f"M={M} grid={G1_SHAPE}x{C}", bwd_ms,
+               pfb_ms - pms, max(dg_gap, dx_gap), b_bytes, 2 * ops, "fp32",
+               library_ms=lfb_ms - lms)
+    bf = 1e3 * f_bytes / HBM_BYTES_PER_S
+    bb = 1e3 * b_bytes / HBM_BYTES_PER_S
+    print(f"kernel trilerp M={M} grid={G1_SHAPE}x{C} ({nvidia_smi_line()}): "
+          f"forward {ms:.3f} ms a call, queued {q_f:.3f}, in a CUDA graph "
+          f"{g_f:.3f}; bound {bf:.4f} ms ({f_bytes / 1e6:.1f} MB at 3.35 "
+          f"TB/s, bytes): {100 * bf / q_f:.1f}% queued; plain path "
+          f"{pms:.3f} ms, F.grid_sample x3 {lms:.3f} ms. Forward and "
+          f"backward {fb_ms:.3f} ms (plain path {pfb_ms:.3f}, F.grid_sample "
+          f"x3 {lfb_ms:.3f}); device ms by kernel "
+          f"{ {k: round(v, 4) for k, v in sorted(dev_ms.items())} }; the "
+          f"backward's bound {bb:.4f} ms ({b_bytes / 1e6:.1f} MB, what the "
+          f"function reads and writes): {100 * bb / bwd_ms:.1f}% of the "
+          f"whole backward ({bwd_ms:.3f} ms, sort and K5 in it), "
+          f"{100 * bb / b_ms:.1f}% of its three kernels ({b_ms:.3f} ms); "
+          f"the design's intermediates besides, written and read back: keys "
+          f"and sort {keys_bytes / 1e6:.1f} MB, sorted rows "
+          f"{rows_bytes / 1e6:.1f} MB, K5's accumulators "
+          f"{acc_bytes / 1e6:.1f} MB ({n_live} live rows of {M}); launches "
+          f"{launches}", flush=True)
+    print(f"kernel trilerp: forward bit-equal to the plain path {fwd_equal}, "
+          f"grid gradient bit-equal {grad_equal} ({n_diff} cells differ), "
+          f"zero pattern equal {zeros_equal}; max abs gap to the plain "
+          f"path: forward {out_gap:.3g}, grid gradient {dg_gap:.3g}, d/dxyz "
+          f"{dx_gap:.3g}; d/dxyz max abs err against "
+          f"float64 G1 {err_k:.3g}, plain path {err_p:.3g}; forward and "
+          f"backward capture into a CUDA graph: {cap} {why}", flush=True)
+    if not (fwd_equal and grad_equal and zeros_equal and err_k <= err_p
+            and cap and launches == G1_STEP_LAUNCHES):
+        raise AssertionError(f"trilerp: forward {fwd_equal}, gradient "
+                             f"{grad_equal} / {zeros_equal}, d/dxyz {err_k:g}"
+                             f" vs {err_p:g}, capture {cap}, {launches}")
 
 
 def print_front_end(name, shape, ms, earlier_ms, fn, pairs, other_pairs,
@@ -1923,7 +2160,8 @@ def phase_train(torch, ckpt_dir):
             ckpt_every=TRAIN_STEPS)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = {k: kernels.LAUNCHES[k] for k in ("scatter",)}
+    launches = {k: kernels.LAUNCHES[k]
+                for k in ("scatter", "trilerp", "trilerp_grad")}
     # one graph a segment: before the occupancy switch, before the
     # rebuild, after it (the refresh at TRAIN_REFRESH copied in place)
     segments = [[round(v, 1) for v in st.capture_ms.values()]
@@ -2010,8 +2248,13 @@ def phase_train(torch, ckpt_dir):
         loss, _ = estep(on_card(torch, b), False, occ, True)
         return loss, {n: p.grad for n, p in model.named_parameters()}
 
-    both_ways(torch, "train stage1", gstep, graphed, eager, host, model,
-              opt, GRAD_REL_ERR)
+    bw = both_ways(torch, "train stage1", gstep, graphed, eager, host,
+                   model, opt, GRAD_REL_ERR)
+    step_launches = {k: bw["launches"].get(k, 0)
+                     for k in ("trilerp", "trilerp_grad", "scatter")}
+    if step_launches != G1_STEP_LAUNCHES:
+        raise AssertionError(f"train stage1: G1 / K5 launches a step "
+                             f"{step_launches}, not {G1_STEP_LAUNCHES}")
     del gstep, estep, opt
 
     # ray microbatching: at MICRO_N_RAND rays the JAX package's auto rule
