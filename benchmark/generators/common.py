@@ -5,7 +5,7 @@ from __future__ import annotations
 import gc
 import statistics
 import time
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -129,6 +129,19 @@ def moving_leaves(grads: Dict[str, Optional[torch.Tensor]],
 
 def peaks() -> Dict:
     return load_json("peaks.json")
+
+
+def keep(kept: List, i: int, n_keep: int, pick: np.random.Generator,
+         item: Callable[[], Any]) -> None:
+    """Reservoir sampling: the window's unit ``i`` (from 0) joins ``kept``,
+    a uniform sample of ``n_keep`` of the units drawn with ``pick``, as it
+    comes, so that the host holds no more than the sample; ``item()``
+    makes what is kept, only when it is."""
+    j = i if i < n_keep else int(pick.integers(0, i + 1))
+    if j < n_keep:
+        if j == len(kept):
+            kept.append(None)
+        kept[j] = item()
 
 
 def percentile(values: List[float], q: float) -> float:

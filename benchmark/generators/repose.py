@@ -33,8 +33,8 @@ import torch
 from ..reference import render as ref
 from ..scene import make_scene, seed_of
 from ..work import k6_bound, mean_counts, point_model, samples
-from .common import (Window, WindowClosed, free_device, peaks, percentile,
-                     program_config)
+from .common import (Window, WindowClosed, free_device, keep, peaks,
+                     percentile, program_config)
 from .stage2_train import shape_of
 
 
@@ -110,16 +110,11 @@ def run(ctx) -> Dict:
             img = render_image(view, K, c2w, H, W, chunk=chunk,
                                device=ctx.device, **flips)
             latencies.append(time.perf_counter() - t)
-            # a uniform sample of the window's frames drawn from the seed,
-            # kept as they come (reservoir sampling): the host holds no
-            # more than the sample
+            # a uniform sample of the window's frames drawn from the seed
             i = win.count - win.warmup
             if i >= 0:
-                j = i if i < n_keep else int(pick.integers(0, i + 1))
-                if j < n_keep:
-                    if j == len(kept):
-                        kept.append(None)
-                    kept[j] = (rot, img["rgb_marched"])
+                keep(kept, i, n_keep, pick,
+                     lambda: (rot, img["rgb_marched"]))
             win.tick()
     except WindowClosed:
         pass

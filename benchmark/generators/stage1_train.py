@@ -8,10 +8,14 @@ first step (``pg_scale`` empty, ``occupancy_start`` 1); the rest is as
 and the reference (``reference.stage1``) following the checked steps on
 the rows the program drew.
 
-End-to-end: ``train_step_ms``, ``setup_s``.
+End-to-end: ``train_step_ms``, ``setup_s``. Traced, the work a step
+needs besides: the filled samples, K5's bytes and G1's (its rows, live
+rows and the grid points they touch counted in the reference's steps,
+``reference.stage1.counting_grid_rows``).
 """
 from __future__ import annotations
 
+import sys
 from typing import Dict
 
 import numpy as np
@@ -19,7 +23,7 @@ import torch
 
 from ..reference import stage1 as ref
 from ..scene import make_scene, seed_of
-from ..work import k5_bound, tineuvox_step
+from ..work import g1_bound, k5_bound, tineuvox_step
 from .common import Window, WindowClosed, free_device, peaks, program_config
 from .stage2_train import CHECKED, clone, compare, host_copy, on_host
 
@@ -83,7 +87,9 @@ def run(ctx) -> Dict:
 
     setting = ref.Setting(ctx.config, traffic["train_config"], scene,
                           seed_of(ctx.seed), ctx.device)
-    r = on_host(ref.run_steps(setting, drawn))
+    grid_calls = []
+    with ref.counting_grid_rows(grid_calls):
+        r = on_host(ref.run_steps(setting, drawn))
     gaps = compare(dict(prog, losses=losses), r)
     lim = ctx.limits
     checks = [("rows_mismatched", float(r["mismatches"]),
@@ -105,11 +111,15 @@ def run(ctx) -> Dict:
         mcfg = r["cfg"]
         ops = tineuvox_step(mcfg, filled, int(cfg.train_config.N_rand),
                             train=True)
+        g1 = g1_bound(grid_calls, len(drawn), peaks())
+        print(f"stage1: G1's calls {grid_calls}, {g1['bytes']!r} bytes a "
+              f"step", file=sys.stderr)
         out["reading"] = {
             "trace": win.reading(), "unit_s": win.seconds / win.units,
             "peaks": peaks(),
             "work": {"ops": ops,
                      "k5": k5_bound(r["world_size"], mcfg.voxel_dim,
                                     filled, peaks()),
+                     "g1": g1,
                      "counts": {"filled": filled}}}
     return out

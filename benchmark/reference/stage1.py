@@ -131,6 +131,67 @@ def counting_filled(counts: List[int]):
         compaction.scatter_back = real
 
 
+def touched(grid_shape, xyz: torch.Tensor, xyz_min, xyz_max) -> int:
+    """The points of a grid of ``grid_shape`` [X, Y, Z, C] that the
+    multi-scale sample at ``xyz`` reads: over the three scales (strides
+    1, 2, 4 of the 4k+1-padded grid, ``ops.grid.mult_dist_interp``), each
+    row's eight corners that lie inside the unpadded grid, counted once."""
+    dims = torch.tensor(grid_shape[:3], device=xyz.device)
+    padded = [-(-(n - 1) // 4) * 4 + 1 for n in grid_shape[:3]]
+    unit = ((xyz.detach() - xyz_min) / (xyz_max - xyz_min)).reshape(-1, 3)
+    keys = []
+    for s in (1, 2, 4):
+        ns = torch.tensor([(p - 1) // s + 1 for p in padded],
+                          device=xyz.device)
+        i0 = torch.floor(unit * (ns - 1).float()).long()
+        for d in range(8):
+            c = i0 + torch.tensor([d >> 2, (d >> 1) & 1, d & 1],
+                                  device=xyz.device)
+            p = c * s
+            ok = ((c >= 0) & (c < ns) & (p < dims)).all(-1)
+            p = p[ok]
+            keys.append((p[:, 0] * dims[1] + p[:, 1]) * dims[2] + p[:, 2])
+    return int(torch.unique(torch.cat(keys)).numel())
+
+
+@contextmanager
+def counting_grid_rows(calls: List[Dict[str, int]]):
+    """Within: every multi-scale grid sample of the frozen forward that
+    takes gradients (a training step's; not the occupancy refresh's) adds
+    to ``calls`` its ``rows`` (samples), ``touched`` (the grid points they
+    read), ``cells`` and ``channels`` (its grid); its backward adds the
+    ``live`` rows, whose cotangent is not all zero, and ``touched_live``,
+    the grid points those read (G1's work, ``work.g1_bound``)."""
+    real = tineuvox.mult_dist_interp
+
+    def mult_dist_interp(grid, xyz, xyz_min, xyz_max):
+        out = real(grid, xyz, xyz_min, xyz_max)
+        if out.requires_grad:
+            shape = tuple(grid.shape)
+            with torch.no_grad():
+                call = {"rows": int(xyz.numel() // 3), "live": 0,
+                        "touched": touched(shape, xyz, xyz_min, xyz_max),
+                        "touched_live": 0,
+                        "cells": int(grid.numel() // grid.shape[-1]),
+                        "channels": int(grid.shape[-1])}
+            calls.append(call)
+            pts = xyz.detach().reshape(-1, 3)
+
+            def live(g):
+                with torch.no_grad():
+                    rows = (g.reshape(-1, g.shape[-1]) != 0).any(-1)
+                    call["live"] = int(rows.sum())
+                    call["touched_live"] = touched(shape, pts[rows],
+                                                   xyz_min, xyz_max)
+            out.register_hook(live)
+        return out
+    tineuvox.mult_dist_interp = mult_dist_interp
+    try:
+        yield
+    finally:
+        tineuvox.mult_dist_interp = real
+
+
 def run_steps(setting: Setting, drawn: List[Dict[str, Any]],
               tf32: bool = False, half_batch: bool = False) -> Dict:
     """As ``reference.stage2.run_steps``, for stage 1; ``filled`` holds

@@ -283,9 +283,12 @@ def head_shapes(F: int, views_ch: int, times_ch: int, time_out: int):
     return out
 
 
-def make_scene(cfg: Dict[str, Any], seed: int, device) -> Scene:
+def make_scene(cfg: Dict[str, Any], seed: int, device,
+               images: bool = True) -> Scene:
     """The scene of configuration ``cfg`` (a ``configs/*.json`` mapping)
-    from ``seed`` on ``device``."""
+    from ``seed`` on ``device``. ``images`` off: without the training
+    images and masks (for a cell that reads none; every other array is the
+    same, since their rendering draws nothing from the seed)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed_of(seed))
     rng = np.random.default_rng(seed_of(seed))
@@ -296,28 +299,29 @@ def make_scene(cfg: Dict[str, Any], seed: int, device) -> Scene:
     near, far = float(cam["near"]), float(cam["far"])
     inverse_y = bool(cfg["data"]["inverse_y"])
     bg = float(cfg["pcd_train_config"]["bg_col"])
-    rgbs, accs = [], []
-    for k in range(len(times)):
-        rgb, acc = render_image(fig, fig.joints_at(float(times[k])),
-                                Ks[img_to_cam[k]], poses[img_to_cam[k]], H,
-                                W, near, far, inverse_y, device)
-        rgbs.append(rgb + bg * (1.0 - acc[..., None]))
-        accs.append(acc)
-    rgb = torch.stack(rgbs).clamp(0, 1)
-    acc = torch.stack(accs).clamp(0, 1)
-    if cam["image_dtype"] == "uint8":
-        images = (rgb * 255).round().to(torch.uint8).cpu().numpy()
-        masks = (acc > 0.5).to(torch.uint8)[..., None].cpu().numpy()
-    else:
-        images = rgb.float().cpu().numpy()
-        masks = acc.float()[..., None].cpu().numpy()
     n = len(times)
     empty = np.zeros(0, np.int64)
     data = dict(hwf=[H, W, float(cam["focal"])], HW=np.array([[H, W]] * n),
                 Ks=Ks, near=near, far=far, i_train=np.arange(n),
-                i_val=empty, i_test=empty, poses=poses, images=images,
-                times=times, img_to_cam=img_to_cam, masks=masks,
-                irregular_shape=False)
+                i_val=empty, i_test=empty, poses=poses, times=times,
+                img_to_cam=img_to_cam, irregular_shape=False)
+    if images:
+        rgbs, accs = [], []
+        for k in range(n):
+            rgb, acc = render_image(fig, fig.joints_at(float(times[k])),
+                                    Ks[img_to_cam[k]], poses[img_to_cam[k]],
+                                    H, W, near, far, inverse_y, device)
+            rgbs.append(rgb + bg * (1.0 - acc[..., None]))
+            accs.append(acc)
+        rgb = torch.stack(rgbs).clamp(0, 1)
+        acc = torch.stack(accs).clamp(0, 1)
+        if cam["image_dtype"] == "uint8":
+            rgb = (rgb * 255).round().to(torch.uint8)
+            acc = (acc > 0.5).to(torch.uint8)
+        else:
+            rgb, acc = rgb.float(), acc.float()
+        data["images"] = rgb.cpu().numpy()
+        data["masks"] = acc[..., None].cpu().numpy()
 
     # the figure's box over all times, a margin round it: stage 1's box
     posed = torch.stack([fig.joints_at(float(t)) for t in np.unique(times)])

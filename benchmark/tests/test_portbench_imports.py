@@ -14,7 +14,8 @@ import glob, os, sys
 import benchmark.run, benchmark.calibrate, benchmark.scene, benchmark.trace
 import benchmark.work
 import benchmark.generators.common, benchmark.generators.stage2_train
-import benchmark.generators.repose
+import benchmark.generators.repose, benchmark.generators.render_test
+import benchmark.generators.stage1_train, benchmark.reference.stage1
 import benchmark.reference.stage2, benchmark.reference.render
 from benchmark import run
 for f in glob.glob(os.path.join(run.HERE, "metrics", "*.py")):

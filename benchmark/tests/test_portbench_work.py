@@ -104,3 +104,80 @@ def test_readers_read_nothing_where_their_group_is_missing():
     assert bench.reader("k6_roofline.render")(r) is None
     r["work"] = {}
     assert bench.reader("mfu.render")(r) is None
+
+
+def test_knn_bound_by_hand():
+    counts = {"active": 10.0, "passing": 4.0}
+    b = work.knn_bound(3, counts, chunks=2, n_points=130, peaks=PEAKS,
+                       tile=128)
+    assert b["ops_s"] == pytest.approx(8 * 3 * 10 / 1e11)
+    # queries 10 x 12; 3 (d2, index) pairs of 8 bytes each; a chunk reads
+    # 130 points of 12 bytes and 2 tiles' boxes of 24
+    nbytes = 10 * 12 + 10 * 3 * 8 + 2 * (130 * 12 + 2 * 24)
+    assert b["bytes_s"] == pytest.approx(nbytes / 1e9)
+    assert b["seconds"] == max(b["ops_s"], b["bytes_s"])
+
+
+def test_g1_bound_by_hand():
+    """Two steps of two calls each: each call's touched points read in the
+    forward, the live rows' in the backward, its grid's gradient written
+    whole; summed over a step's calls."""
+    call = {"rows": 5, "live": 2, "touched": 6, "touched_live": 3,
+            "cells": 7, "channels": 2}
+    calls = [call, dict(call, live=5, touched_live=6),
+             dict(call, rows=3, live=1, touched=4, touched_live=2), call]
+    b = work.g1_bound(calls, 2, PEAKS)
+    point, feats = 2 * 4, 3 * 2 * 4
+    total = 0
+    for rows, live, t, tl in ((5, 2, 6, 3), (5, 5, 6, 6), (3, 1, 4, 2),
+                              (5, 2, 6, 3)):
+        fwd = t * point + rows * 12 + rows * feats
+        # live rows' positions, cotangents and the points they read; the
+        # gradient of all 7 cells written, d/dxyz of every row
+        bwd = live * (12 + feats) + tl * point + 7 * point + rows * 12
+        total += fwd + bwd
+    assert b["bytes"] == pytest.approx(total / 2)
+    assert b["seconds"] == pytest.approx(b["bytes"] / 1e9)
+
+
+def test_g1_bound_at_the_smoke_shape():
+    """At M = 2^20 rows, all live, every point of a 160^3 x 12 grid read:
+    360 MB forward and 569 MB backward, as ``chip_smoke.py`` phase 3 counts
+    them."""
+    M = 1 << 20
+    cells = 160 ** 3
+    call = {"rows": M, "live": M, "touched": cells, "touched_live": cells,
+            "cells": cells, "channels": 12}
+    fwd = work.g1_bound([dict(call, live=0, touched_live=0)], 1,
+                        PEAKS)["bytes"] - (cells * 12 * 4 + M * 12)
+    total = work.g1_bound([call], 1, PEAKS)["bytes"]
+    assert round(fwd / 1e6) == 360
+    assert round((total - fwd) / 1e6) == 569
+
+
+def test_touched_points_by_hand():
+    """A 5^3 grid (4k+1 already, so unpadded) sampled at its centre: stride
+    1 reads the points 2 and 3 on each axis, stride 2 (index 1.0) the points
+    2 and 4, stride 4 (index 0.5) 0 and 4: 3 x 8 points, of which (2, 2, 2)
+    and (4, 4, 4) are read by two scales, counted once."""
+    import torch
+    from benchmark.reference.stage1 import touched
+    lo, hi = torch.zeros(3), torch.ones(3)
+    xyz = torch.full((1, 3), 0.5)
+    assert touched((5, 5, 5, 2), xyz, lo, hi) == 22
+    assert touched((5, 5, 5, 2), xyz.repeat(3, 1), lo, hi) == 22
+    # at the grid's far corner only the corners inside it are read: one a
+    # scale, the same point
+    assert touched((5, 5, 5, 2), torch.ones(1, 3), lo, hi) == 1
+
+
+def test_new_readers():
+    r = reading({"own:K2_count": 300.0, "own:K1_K3_scan": 700.0,
+                 "own:G1_trilerp": 2000.0})
+    r["work"].update(knn={"seconds": 1e-4}, g1={"seconds": 5e-4})
+    assert bench.reader("knn_roofline.render")(r) == pytest.approx(10.0)
+    assert bench.reader("g1_roofline.train")(r) == pytest.approx(25.0)
+    r = reading({"glue": 1.0})
+    r["work"].update(knn={"seconds": 1e-4}, g1={"seconds": 5e-4})
+    assert bench.reader("knn_roofline.render")(r) is None
+    assert bench.reader("g1_roofline.train")(r) is None

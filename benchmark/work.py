@@ -21,6 +21,10 @@ demand and its budget.
   ``knn_cand`` a passing one in the shared mode.
 - training: three times the forward (the backward twice it), nothing
   recomputed counted.
+
+The kernels' least work (``k5_bound``, ``k6_bound``, ``knn_bound``,
+``g1_bound``) counts what their result needs, whatever kernel computes it:
+each input byte read once, each output byte written once.
 """
 from __future__ import annotations
 
@@ -144,4 +148,45 @@ def k5_bound(world_size: Sequence[int], voxel_dim: int, filled: float,
         for p in padded:
             cells *= (p - 1) // s + 1 + 1
         nbytes += filled * (4 + 4 * C8) + 4 * C8 * cells
+    return {"bytes": nbytes, "seconds": nbytes / peaks["hbm_bytes_per_s"]}
+
+
+def knn_bound(K: int, counts: Dict[str, float], chunks: int, n_points: int,
+              peaks: Dict, tile: int = 128) -> Dict[str, float]:
+    """The exact k-NN (K2 + K3) of one frame: 8 fp32 operations for each
+    of the ``K`` distances of each active sample; read once: the active
+    samples' positions, and each chunk the point tables (the ``n_points``
+    warped points and a box of two corners a ``tile`` points); written
+    once: K (d2, index) pairs an active sample. -> ``ops_s``, ``bytes_s``,
+    ``seconds`` (the larger)."""
+    n = counts["active"]
+    ops_s = 8.0 * n * K / peaks["fp32_flops"]
+    tables = n_points * 3 * 4 + -(-n_points // tile) * 2 * 3 * 4
+    nbytes = n * 3 * 4 + n * K * (4 + 4) + chunks * tables
+    bytes_s = nbytes / peaks["hbm_bytes_per_s"]
+    return {"ops_s": ops_s, "bytes_s": bytes_s,
+            "seconds": max(ops_s, bytes_s)}
+
+
+def g1_bound(calls: List[Dict[str, float]], steps: int, peaks: Dict
+             ) -> Dict[str, float]:
+    """G1 (the multi-scale grid sample, forward and backward) of one
+    stage-1 step, from the ``calls`` of ``steps`` steps, each with its
+    ``rows`` (the samples' positions, [rows, 3] fp32), ``live`` (rows whose
+    cotangent is not all zero), ``touched`` / ``touched_live`` (the grid
+    points that the rows / the live rows read, over the three scales) and
+    the ``cells`` and ``channels`` of its grid (fp32). A call moves at
+    least: forward, the touched points read, the positions read and the
+    three scales' features written ([rows, 3 x channels]); backward, the
+    live rows' positions and cotangents and the points they touch read,
+    the grid's gradient written whole (it is a dense tensor) and d/dxyz
+    written. -> ``bytes``, ``seconds`` at the HBM rate."""
+    nbytes = 0.0
+    for c in calls:
+        point = c["channels"] * 4
+        feats = 3 * point
+        nbytes += (c["touched"] * point + c["rows"] * (12 + feats)
+                   + c["live"] * (12 + feats) + c["touched_live"] * point
+                   + c["cells"] * point + c["rows"] * 12)
+    nbytes /= steps
     return {"bytes": nbytes, "seconds": nbytes / peaks["hbm_bytes_per_s"]}
