@@ -187,8 +187,18 @@ and no result line is printed):
    ``render_viewpoints``: bit-equal to the view without the mesh, ms a
    frame graphed, NCCL kernels, device copies and host calls a frame,
    peak memory.
-10. a JSON line of the kernels (each kernel's launches summed over the
-   paths of phases 4-9, and by path: P1's on the avg_procrustes view and
+10. wim -- the WIM loader on the card's host: the benchmark's ``wim``
+   scene (``benchmark/configs/wim.json``, the spot quadruped, 18 ring
+   cameras) written as a WIM dataset of ``WIM_FRAMES`` frames at 512 x
+   512 (``write_wim_fixture``: RGBA frames with straight colour and
+   alpha, cameras 0-19, ``cam_%03d.json``), read back with
+   ``data.load_data``: the images within one uint8 level of the scene's
+   or two below (the loader truncates), the masks equal but at alpha
+   127-128, the other arrays equal, the poses within float32 rounding
+   (``check_wim_load``); then ``WIM_STEPS`` steps of
+   ``train_pcd`` on what the loader read (finite losses, K3 every step).
+11. a JSON line of the kernels (each kernel's launches summed over the
+   paths of phases 4-10, and by path: P1's on the avg_procrustes view and
    steps), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -419,6 +429,16 @@ CLI_SAMPLE_BUDGET = 96
 # phase 5's random weights: the trained heads turn one bf16 step of h
 # into a larger change of density and colour.
 CLI_PSNR_MIN_DB = 100.0
+# Phase 10 (wim). WIM_FRAMES frames of the benchmark's ``wim`` scene written
+# as a WIM dataset; WIM_STEPS steps of train_pcd on what the loader read.
+# The WIM training cameras 1-9 and 11-19 are the scene's ring cameras 0-17;
+# the test cameras 0 and 10 sit half-way between ring cameras 17 and 0, 8
+# and 9.
+WIM_FRAMES = 30
+WIM_STEPS = 20
+WIM_SEED = 4100000003
+WIM_TRAIN_CAMS = list(range(1, 10)) + list(range(11, 20))
+WIM_TEST_CAMS = {0: -0.5, 10: 8.5}   # camera id: place on the ring
 
 
 def nvidia_smi_line() -> str:
@@ -3933,6 +3953,181 @@ def cli_invocations(torch, work, writer, t_phase):
     return total
 
 
+def wim_config():
+    """The benchmark's ``wim`` configuration (``benchmark/configs/wim.json``:
+    the scene, the cameras and the program's sections)."""
+    return json.loads((REPO / "benchmark" / "configs" / "wim.json")
+                      .read_text())
+
+
+def wim_data_config(root, frames, size=512):
+    """The ``data`` section that reads the WIM dataset at ``root`` (its
+    frames at ``size``, ``wim_size``)."""
+    from apnerf_torch.config.config import ConfigDict
+    return ConfigDict(dataset_type="wim", datadir=str(root),
+                      video_len=int(frames), wim_size=int(size))
+
+
+def wim_rgba(rgb, acc):
+    """uint8 RGBA [H, W, 4] of a volume render, as a WIM frame holds it:
+    straight colour (the premultiplied ``rgb`` [H, W, 3] over the opacity
+    ``acc`` [H, W]) and ``acc`` as alpha."""
+    import torch
+    a = acc.clamp(0.0, 1.0)[..., None]
+    straight = torch.where(a > 0, rgb / a.clamp(min=1e-12),
+                           torch.zeros_like(rgb)).clamp(0.0, 1.0)
+    rgba = (torch.cat([straight, a], -1) * 255).round()
+    return rgba.to(torch.uint8).cpu().numpy()
+
+
+def wim_camera_json(path, c2w, K):
+    """``cam_%03d.json`` of camera-to-world ``c2w``: its view matrix,
+    transposed, and the intrinsics, as WIM's camera files hold them."""
+    view = np.linalg.inv(np.asarray(c2w, np.float64))
+    with open(path, "w") as f:
+        json.dump({"camera_data": {
+            "intrinsics": {"fx": float(K[0, 0]), "fy": float(K[1, 1]),
+                           "cx": float(K[0, 2]), "cy": float(K[1, 2])},
+            "camera_view_matrix": view.T.tolist()}}, f)
+
+
+def wim_ring_pose(cam, poses, place):
+    """Camera-to-world of a camera at ring index ``place`` (fractional) on
+    the ring of the scene's cameras ``poses`` (``cam``: the configuration's
+    ``cameras`` block)."""
+    from benchmark.scene import look_at_opencv
+    a = (np.arctan2(poses[0][1, 3], poses[0][0, 3])
+         + 2 * np.pi * place / len(poses))
+    return look_at_opencv(float(cam["radius"]) * np.array(
+        [np.cos(a), np.sin(a), float(cam["height"])]))
+
+
+def write_wim_fixture(root, cfg, seed, device):
+    """The benchmark's scene of configuration ``cfg`` (a ring of 18
+    cameras) written under ``root`` as a WIM dataset: RGBA
+    ``frame_%05d_cam_%03d.png`` for each of the ``n_times`` frames and the
+    cameras 0-19, and ``cam_%03d.json``. Returns the scene
+    (``benchmark.scene.make_scene``), whose images the loader must give
+    back."""
+    from apnerf_torch.utils.png import write_png
+    from benchmark.scene import make_scene, render_image
+    scene = make_scene(cfg, seed, device)
+    data, cam = scene.data, cfg["cameras"]
+    poses, K = data["poses"], data["Ks"][0]
+    if len(poses) != len(WIM_TRAIN_CAMS):
+        raise ValueError(f"a WIM dataset has {len(WIM_TRAIN_CAMS)} training "
+                         f"cameras, the scene {len(poses)}")
+    by_id = dict(zip(WIM_TRAIN_CAMS, poses))
+    by_id.update({c: wim_ring_pose(cam, poses, place).astype(np.float32)
+                  for c, place in WIM_TEST_CAMS.items()})
+    os.makedirs(root, exist_ok=True)
+    for c, c2w in by_id.items():
+        wim_camera_json(os.path.join(root, f"cam_{c:03d}.json"), c2w, K)
+    size = int(cam["size"])
+    for f in range(int(cam["n_times"])):
+        joints = scene.figure.joints_at(float(data["times"][f * len(poses)]))
+        for c, c2w in by_id.items():
+            rgb, acc = render_image(scene.figure, joints, K, c2w, size, size,
+                                    float(cam["near"]), float(cam["far"]),
+                                    bool(cfg["data"]["inverse_y"]), device)
+            write_png(os.path.join(root, f"frame_{f:05d}_cam_{c:03d}.png"),
+                      wim_rgba(rgb, acc))
+    return scene
+
+
+def check_wim_load(data, want):
+    """(lowest and highest image gap in uint8 levels, pixels two levels
+    low, mask pixels that differ, largest pose gap) of the loader's
+    ``data`` against the scene's ``want``. Raises unless each image pixel
+    lies within one level of the scene's, or two below it (the file's
+    alpha and straight colour are each rounded, together within one level
+    of the composite, and the loader truncates its composite to uint8, as
+    the WIM reference loader does, which lowers a pixel by less than one
+    more), no mask pixel differs (alpha above one half against the scene's
+    mask), the poses lie within 4 float32 ulp of their largest entry
+    (float64 inverses on the way) and every other array is equal. A mask
+    pixel may differ where the alpha is 127 or 128: the file's alpha
+    rounds another render of the same opacity, which on the card differs
+    from the scene's in its last bits, and the scene's mask is that
+    opacity above one half."""
+    gap = (data["images"].astype(np.int16)
+           - want["images"].astype(np.int16))
+    lo, hi = int(gap.min()), int(gap.max())
+    two_low = int((gap == -2).sum())
+    differ = (data["masks"] > 127) != (want["masks"] > 0)
+    edge = np.abs(data["masks"].astype(np.int16) * 2 - 255) <= 1
+    mask_diff = int((differ & ~edge).sum())
+    mask_edge = int((differ & edge).sum())
+    pose_gap = float(np.abs(data["poses"] - want["poses"]).max())
+    pose_tol = 4 * float(np.spacing(np.abs(want["poses"]).max()))
+    same = all(np.array_equal(np.asarray(data[k]), np.asarray(want[k]))
+               for k in ("Ks", "times", "img_to_cam", "i_train", "HW"))
+    same &= (data["near"], data["far"]) == (want["near"], want["far"])
+    if lo < -2 or hi > 1 or mask_diff or pose_gap > pose_tol or not same:
+        raise AssertionError(f"wim load: images {lo} to {hi} levels off the "
+                             f"scene's, {mask_diff} mask pixels differ, "
+                             f"poses within {pose_gap:.3g} (tolerance "
+                             f"{pose_tol:.3g}), the other arrays equal: "
+                             f"{same}")
+    return lo, hi, two_low, mask_diff, mask_edge, pose_gap
+
+
+def phase_wim(torch):
+    """Phase 10: the WIM loader on the card's host. Returns the launch
+    counts of its ``train_pcd`` run."""
+    from apnerf_torch import kernels
+    from apnerf_torch.data.load_data import load_data
+    from apnerf_torch.models.tineuvox import TiNeuVoxConfig
+    from apnerf_torch.train import stage2
+    from apnerf_torch.utils.checkpoint import params_to_jax
+    from benchmark.generators.common import program_config
+    t_phase = time.perf_counter()
+    cfg = wim_config()
+    cfg["cameras"]["n_times"] = WIM_FRAMES
+    with tempfile.TemporaryDirectory() as work:
+        root = os.path.join(work, "spot")
+        t0 = time.perf_counter()
+        scene = write_wim_fixture(root, cfg, WIM_SEED, DEVICE)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = load_data(wim_data_config(root, WIM_FRAMES), bg_col=1)
+        load_s = time.perf_counter() - t0
+        lo, hi, two_low, mask_diff, mask_edge, pose_gap = check_wim_load(
+            data, scene.data)
+        print(f"wim load: the wim scene (seed {WIM_SEED}) written as "
+              f"{WIM_FRAMES} frames of cameras 0-19, RGBA 512x512, in "
+              f"{write_s:.1f} s; load_data read {len(data['images'])} "
+              f"training images in {load_s:.1f} s: images {lo} to {hi} "
+              f"uint8 levels off the scene's ({two_low} of "
+              f"{data['images'].size} values two below), {mask_diff} mask "
+              f"pixels differ ({mask_edge} more at alpha 127-128), poses "
+              f"within {pose_gap:.3g}", flush=True)
+
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        *_, stats = stage2.train_pcd(
+            program_config(cfg), data, scene.canonical, scene.skeleton,
+            params_to_jax({k: torch.from_numpy(v)
+                           for k, v in scene.heads.items()}),
+            TiNeuVoxConfig(**scene.backbone), scene.bbox, seed=WIM_SEED,
+            n_iters=WIM_STEPS, log_every=5, max_steps=cfg["max_steps"],
+            device=DEVICE)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if not np.isfinite(stats["loss"]).all() or launches.get(
+                "knn_radius", 0) < WIM_STEPS:
+            raise AssertionError(f"wim train_pcd: losses {stats['loss']}, "
+                                 f"launches {launches}")
+        print(f"wim train_pcd: {WIM_STEPS} steps on the loaded dataset in "
+              f"{time.perf_counter() - t0:.1f} s (set-up included), losses "
+              f"{[round(x, 4) for x in stats['loss']]}, launches {launches}",
+              flush=True)
+
+    print(f"wim: phase 10 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3981,6 +4176,7 @@ def main() -> int:
         by_path.update(phase_mesh(torch, s2_ctx, s1_data, d))
         del s2_ctx
     by_path["cli"] = phase_cli(torch)
+    by_path["wim"] = phase_wim(torch)
 
     print(json.dumps({"kernels": report.json_rows(by_path)}))
     print(f"nvidia-smi: {nvidia_smi_line()}")
