@@ -38,9 +38,12 @@
 //   step; any other row count goes through a small shared tile, 16 columns
 //   at a time. Only the reduced fp32 rows are written.
 // The callers supply a front end (`Front`): where a row's 3-vector, weight
-// and feature row come from (K4: global arrays; K6: the subgroup geometry
-// it forms in shared memory).
+// and feature row come from (K4: global arrays or, in its gathering front,
+// the frame's point tables; K6: the subgroup geometry it forms in shared
+// memory).
 #pragma once
+
+#include <type_traits>
 
 #include "wgmma_sm90.cuh"
 
@@ -183,6 +186,76 @@ __device__ __forceinline__ void bias_act(float (&acc)[F / 2],
       acc[4 * j + i] = v;
     }
   }
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// acc += a column vector (layer 1's pose term, before its round).
+template <int F>
+__device__ __forceinline__ void add_columns(float (&acc)[F / 2],
+                                            const float* __restrict__ v,
+                                            int lane) {
+#pragma unroll
+  for (int j = 0; j < F / 8; ++j) {
+    const float2 d =
+        __ldg(reinterpret_cast<const float2*>(v + 8 * j + 2 * (lane & 3)));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[4 * j + i] += (i & 1) ? d.y : d.x;
+  }
+}
+
+// featnet_plain's rounding on the accumulator fragment, as PyTorch computes
+// x @ w.t() + b and leaky_relu in bf16: the product rounded to bf16, the
+// bias (bf16 values) added and rounded, leaky-ReLU applied and rounded.
+template <int F>
+__device__ __forceinline__ void plain_act(float (&acc)[F / 2],
+                                          const float* __restrict__ bias,
+                                          int lane) {
+#pragma unroll
+  for (int j = 0; j < F / 8; ++j) {
+    const float2 b =
+        __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 2 * (lane & 3)));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float v =
+          bf16_round(bf16_round(acc[4 * j + i]) + ((i & 1) ? b.y : b.x));
+      acc[4 * j + i] = bf16_round(leaky(v));
+    }
+  }
+}
+
+// Optional properties of a front, false unless it declares them true:
+// kPlainRound, every layer in featnet_plain's rounding (plain_act, after
+// layer 1's pose term `front.pose` where there is one) instead of
+// bias_act's fp32 bias; kLivePrefix, only the members before the count at
+// `front.live` (when given) are worked on, the front clearing the others'
+// outputs (`clear_tail`).
+template <class Fr, class = void>
+struct plain_round : std::false_type {};
+template <class Fr>
+struct plain_round<Fr, std::void_t<decltype(Fr::kPlainRound)>>
+    : std::bool_constant<Fr::kPlainRound> {};
+template <class Fr, class = void>
+struct live_prefix : std::false_type {};
+template <class Fr>
+struct live_prefix<Fr, std::void_t<decltype(Fr::kLivePrefix)>>
+    : std::bool_constant<Fr::kLivePrefix> {};
+
+// The members a launch works on: all, or those of the live prefix.
+template <class Front>
+__device__ __forceinline__ Rows live_rows(const Front& front,
+                                          const Rows& rows) {
+  if constexpr (live_prefix<Front>::value) {
+    if (front.live != nullptr) {
+      Rows r = rows;
+      r.n_members = min(max(__ldg(front.live), 0), rows.n_members);
+      r.n_tiles = (r.n_members + r.mpt - 1) / r.mpt;
+      return r;
+    }
+  }
+  return rows;
 }
 
 // Column c of a row of a warpgroup's PE tile; row_ptr = tile + 128 r, swz =
@@ -355,7 +428,8 @@ __device__ __forceinline__ void reduce_any_store(
 }
 
 // One launch: every warpgroup of every block walks over its tiles.
-// Front: kRoundLast (the last layer rounded to bf16, K4) | feat | out |
+// Front: kRoundLast (the last layer rounded to bf16, K4; not read under
+// kPlainRound) | the optional kPlainRound / kLivePrefix (above) | feat | out |
 // ctx(rows, g0), feat_row(ctx, ml, k, kc): the feature row of position k of
 // the tile's member ml | Pre, fetch(pre, scratch, rows, g0, pass, t): starts
 // a step's loads from device memory (into registers or, by cp.async, into
@@ -363,11 +437,12 @@ __device__ __forceinline__ void reduce_any_store(
 // fills row_data.x / .wrow of the pass's 64 row slots (at pass * 64).
 template <int F, class Front>
 __global__ void __launch_bounds__(kThreads, 1)
-    chain_kernel(const Front front, const ChainPlan plan, const Rows rows,
+    chain_kernel(const Front front, const ChainPlan plan, const Rows all_rows,
                  const unsigned char* __restrict__ image,
                  const float* __restrict__ b1, const float* __restrict__ bl,
                  int n_pe, int P_pad) {
   extern __shared__ __align__(1024) unsigned char smem[];
+  const Rows rows = live_rows(front, all_rows);
   constexpr int kChunksF = (F + 63) / 64;
   constexpr int kChunkW = F * kChunkBytes;   // one K chunk of a weight image
   const uint32_t base = smem_u32(smem);
@@ -389,6 +464,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     cp_async16(base + u, image + u);
   }
   cp_async_commit();
+  if constexpr (live_prefix<Front>::value) {   // while the weights arrive
+    front.clear_tail(rows, all_rows.n_members, F,
+                     blockIdx.x * kThreads + threadIdx.x,
+                     gridDim.x * kThreads);
+  }
   cp_async_wait_all();
   fence_async_proxy();
   __syncthreads();
@@ -487,7 +567,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (!has) continue;
       // (the bf16 round of this layer's output is the packing below)
-      bias_act<F, false>(acc, l == 1 ? b1 : bl + (size_t)(l - 2) * F, lane);
+      if constexpr (plain_round<Front>::value) {
+        if (l == 1 && front.pose != nullptr) {
+          add_columns<F>(acc, front.pose, lane);
+        }
+        plain_act<F>(acc, l == 1 ? b1 : bl + (size_t)(l - 2) * F, lane);
+      } else {
+        bias_act<F, false>(acc, l == 1 ? b1 : bl + (size_t)(l - 2) * F, lane);
+      }
 #pragma unroll
       for (int s = 0; s < F / 16; ++s) {
 #pragma unroll
@@ -520,8 +607,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (has_next) load_feat<F>(front, rows, ng0, npass, a, warp, lane);
 
     // ---- last layer's epilogue, row weights, reduction over the members
-    bias_act<F, Front::kRoundLast>(
-        acc, L == 1 ? b1 : bl + (size_t)(L - 2) * F, lane);
+    if constexpr (plain_round<Front>::value) {
+      if (L == 1 && front.pose != nullptr) {
+        add_columns<F>(acc, front.pose, lane);
+      }
+      plain_act<F>(acc, L == 1 ? b1 : bl + (size_t)(L - 2) * F, lane);
+    } else {
+      bias_act<F, Front::kRoundLast>(
+          acc, L == 1 ? b1 : bl + (size_t)(L - 2) * F, lane);
+    }
     const int slot0 = pass * kTileRows;
     const float w0 = cur.wrow[slot0 + 16 * warp + (lane >> 2)];
     const float w1 = cur.wrow[slot0 + 16 * warp + (lane >> 2) + 8];

@@ -16,7 +16,8 @@ from typing import Dict
 import torch
 
 LAUNCHES: Dict[str, int] = {"knn_brute": 0, "knn_count": 0, "knn_radius": 0,
-                            "featmlp": 0, "scatter": 0, "agg": 0,
+                            "featmlp": 0, "featmlp_gather": 0,
+                            "scatter": 0, "agg": 0,
                             "procrustes": 0, "procrustes_grad": 0,
                             "trilerp": 0, "trilerp_grad": 0}
 

@@ -42,6 +42,10 @@ SIGNATURES = {
     "featmlp_launch": [P, P, P, P, P, P, I, I, I, I, I, I, P, P],
     # F, P_pad, n_layers, resident (out), smem_bytes (out); 0 when refused
     "featmlp_plan": [I, I, I, P, P],
+    # q, idx, geo, feat, image, b1, bl, pose, live, n, K, eps, F, n_pe,
+    # P_pad, n_layers, h, kth, w, stream
+    "featmlp_gather_launch": [P, P, P, P, P, P, P, P, P, I, I, F, I, I, I, I,
+                              P, P, P, P],
     # idx, upd, M, C, n_rows, transposed, offs, cnt, items, pinfo, partial,
     # out, stream
     "scatter_launch": [P, P, I, I, I, I, P, P, P, P, P, P, P],

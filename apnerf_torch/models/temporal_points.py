@@ -15,7 +15,10 @@ budgets, else (or under ``APNERF_FUSED_SAMPLER=0``) the
 ``sample_rays_compact`` / ``compact_active`` pair, as the JAX package
 chooses. ``feat_net`` runs in kernel K4 (``kernels.featmlp``) under
 ``featmlp_kernel`` with bf16 aggregation, and otherwise in the XLA
-formulation (``featnet_plain``); ``fused_agg`` takes kernel K6
+formulation (``featnet_plain``), which the exact path's render computes
+in K4's gathering front (``featmlp.featmlp_gather``, where
+``featmlp.gather_kernel_ok``: on the card, gradients off, bf16
+aggregation); ``fused_agg`` takes kernel K6
 (``kernels.agg``) under the JAX package's own conditions (shared mode, bf16
 aggregation, no pose embedding, not ``render_pcd_direct``, not
 ``render_weights``, ``feat_depth == 4``). ``aggregate_pts`` reports which
@@ -43,6 +46,7 @@ import torch.nn.functional as Fn
 from torch import nn
 
 from .. import resolve_device
+from ..kernels import featmlp
 from ..kernels.agg import fused_subgroup_agg
 from ..kernels.featmlp import FeatMLPWeights, featmlp_agg, pack_weights
 from ..kernels.knn_cells import build_point_tables
@@ -664,6 +668,33 @@ def _featnet_h(srcs: "PointSources", rel_canon, feat_k, w):
     return h.reshape(*lead, F)
 
 
+def gather_rows(geo, feat, dtype, idx):
+    """Rows ``idx`` of a frame's tables: ``geo`` [Pp, 12] (fp32) and
+    ``feat`` [Pp, F], the features cast to ``dtype`` after the gather ->
+    ([..., 12], [..., F])."""
+    flat = idx.reshape(-1)
+    g = geo.index_select(0, flat).reshape(*idx.shape, -1)
+    f = feat.index_select(0, flat).to(dtype)
+    return g, f.reshape(*idx.shape, -1)
+
+
+def exact_front_plain(geo, feat, dtype, q, idx, eps):
+    """The exact path's per-slot front in plain PyTorch, what K4's gathering
+    front computes before ``feat_net``: the neighbours ``idx`` [n, K] of
+    the slots ``q`` [n, 3] gathered (``gather_rows``), their offsets, the
+    squared distances ``to_nn``, the normalised inverse-distance weights
+    and the offsets rotated into the canonical frame -> (rel_canon [n, K,
+    3], feat_k [n, K, F], to_nn [n, K], w [n, K])."""
+    g, feat_k = gather_rows(geo, feat, dtype, idx)
+    rel_p = q[:, None, :] - g[..., :3]
+    to_nn = (rel_p ** 2).sum(-1)
+    w = 1.0 / (to_nn + eps)
+    w = w / w.sum(-1, keepdim=True)
+    rel_canon = torch.einsum("mkab,mkb->mka",
+                             g[..., 3:].reshape(*idx.shape, 3, 3), rel_p)
+    return rel_canon, feat_k, to_nn, w
+
+
 class PointSources:
     """What every ray chunk of a frame gathers from, built once per frame
     by ``prepare_frame``: the per-point arrays permuted into the
@@ -671,7 +702,10 @@ class PointSources:
     ``feat_net``'s layers in the aggregation type (bf16 under ``agg_bf16``,
     else fp32), and, when kernel K4 or K6 may run, those layers packed for
     the kernels (biases included, the frame's pose embedding folded into
-    the layer-1 bias)."""
+    the layer-1 bias); ``gather_tabs``, the tables and layers of K4's
+    gathering front, only for a frame of the exact path (``knn_share`` 1)
+    that takes it (``featmlp.gather_kernel_ok``: a training step packs
+    nothing)."""
 
     def __init__(self, model: TemporalPoints, state, tables, t_hat_pcd,
                  inv_rot, lbs_weights, pose_embedding):
@@ -698,6 +732,13 @@ class PointSources:
                     cfg.feat_dim, cfg.posbase_pe,
                     None if pose_embedding is None
                     else pose_embedding.detach())
+        self.gather_tabs = None
+        if cfg.knn_share == 1 and featmlp.gather_kernel_ok(self.geo.device,
+                                                           cfg):
+            self.gather_tabs = featmlp.GatherTables(
+                self.geo, self.feat.to(torch.bfloat16),
+                featmlp.pack_plain_weights(self.layers, cfg.feat_dim,
+                                           cfg.posbase_pe, pose_embedding))
 
     @property
     def has_pose_embedding(self) -> bool:
@@ -718,10 +759,7 @@ class PointSources:
         indexing's sort-based backward took ~80 ms of a training step for
         the ~0.6 M rows the exact step gathers at the nerf family's width
         (NVIDIA H100 80GB HBM3, 700 W)."""
-        flat = idx.reshape(-1)
-        geo = self.geo.index_select(0, flat).reshape(*idx.shape, -1)
-        feat = self.feat.index_select(0, flat).to(self.dtype)
-        return geo, feat.reshape(*idx.shape, -1)
+        return gather_rows(self.geo, self.feat, self.dtype, idx)
 
     def permute(self, arr):
         out = arr[self.perm]
@@ -991,11 +1029,12 @@ def _aggregate_exact(model: TemporalPoints, state, srcs, viewdirs, q, src,
         src = torch.where(nn_ok, src, torch.full_like(src, M_full))
         n_slots = M_slots
 
+    # the passing slots come first: their mask is the kernel's live prefix
     res = pmesh.shard_rows(
         mesh, lambda *a: _exact_slots(model, state, srcs, viewdirs, R, B,
                                       query_radius, tables,
                                       render_pcd_direct, render_weights, *a),
-        q, src)
+        q, src, pass_ok if M_pass < M_slots else None)
 
     # exact kth distance of the selected set decides the radius cutoff
     dst = torch.where(pass_ok & (res.pop("kth") <= query_radius), src,
@@ -1023,34 +1062,39 @@ def _aggregate_exact(model: TemporalPoints, state, srcs, viewdirs, q, src,
 
 def _exact_slots(model: TemporalPoints, state, srcs, viewdirs, R, B,
                  query_radius, tables, render_pcd_direct, render_weights, q,
-                 src):
+                 src, live=None):
     """The work of the passing slots ``q`` [n, 3] (``src`` their flat
-    sample): K (K3), the aggregation, ``feat_net`` and the heads ->
-    ``alpha``, ``rgb``, ``kth`` (the kth distance) and the render's
-    extras, per slot."""
+    sample; ``live``: which passed, all of them first, or None): K (K3),
+    the aggregation, ``feat_net`` and the heads -> ``alpha``, ``rgb``,
+    ``kth`` (the kth distance) and the render's extras, per slot. The
+    aggregation is K4's gathering front where the frame built its tables
+    (the slots past the live prefix then get h 0, kth +inf), else the
+    gathers and ``_featnet_h``."""
     cfg = model.cfg
     K = cfg.neighbours
     _, idx = knn(q, None, K, radius2=float(query_radius), point_tables=tables)
     views_emb = _views_emb(cfg, state, viewdirs,
                            torch.clamp(src // B, max=R - 1))
     idxl = idx.long()
-    geo, feat_k = srcs.gather(idxl)                     # [n, K, 12 / F]
-    rel_p = q[:, None, :] - geo[..., :3]
-    to_nn = (rel_p ** 2).sum(-1)
-    w = 1.0 / (to_nn + cfg.eps)
-    w = w / w.sum(-1, keepdim=True)
-    rel_canon = torch.einsum("mkab,mkb->mka",
-                             geo[..., 3:].reshape(q.shape[0], K, 3, 3), rel_p)
-    h = _featnet_h(srcs, rel_canon, feat_k, w)
+    want_w = render_weights and srcs.lbs is not None
+    if srcs.gather_tabs is not None and featmlp.gather_kernel_ok(
+            q.device, cfg, render_pcd_direct):
+        h, kth, w = featmlp.featmlp_gather(q, idx, srcs.gather_tabs, cfg.eps,
+                                           live=live, want_w=want_w)
+    else:
+        rel_canon, feat_k, to_nn, w = exact_front_plain(
+            srcs.geo, srcs.feat, srcs.dtype, q, idxl, cfg.eps)
+        kth = to_nn.amax(-1)
+        h = _featnet_h(srcs, rel_canon, feat_k, w)
     alpha, rgb = _heads(model, h, views_emb)
-    out = {"alpha": alpha, "rgb": rgb, "kth": to_nn.amax(-1)}
+    out = {"alpha": alpha, "rgb": rgb, "kth": kth}
     if render_pcd_direct:
         sig_all, a_all, c_all = srcs.direct()
         w_dir = torch.exp(-(to_nn ** 2) / (2.0 * sig_all[idxl] ** 2 + 1e-12))
         w_dir_col = w_dir / (w_dir.sum(-1, keepdim=True) + 1e-12)
         out["alpha_direct"] = (w_dir / K * a_all[idxl]).sum(-1)
         out["rgb_direct"] = (w_dir_col[..., None] * c_all[idxl]).sum(1)
-    if render_weights and srcs.lbs is not None:
+    if want_w:
         out["lbs_w"] = (srcs.lbs[idxl] * w[..., None]).sum(1)
     return out
 

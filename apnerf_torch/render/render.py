@@ -235,7 +235,8 @@ def render_viewpoints(render_chunk_for, render_poses, HW, Ks, test_times,
             if eval_psnr:
                 psnrs.append(metrics.psnr(rgb, gt[..., :3]))
             if eval_ssim:
-                ssims.append(metrics.rgb_ssim(rgb, gt[..., :3], max_val=1))
+                ssims.append(metrics.rgb_ssim(rgb, gt[..., :3], max_val=1,
+                                              device=device))
             if eval_lpips_alex:
                 lp_a.append(metrics.rgb_lpips(gt[..., :3], rgb, "alex",
                                               device=device))

@@ -17,7 +17,16 @@ and no result line is printed):
    ``K4_REL_MAX_ERR`` of max |h| and its mean under ``K4_MEAN_ABS_ERR`` and
    ``K4_REL_MEAN_ERR`` of max |h|, printed beside a control
    reading), with the median of CUDA-event timed runs of each side; K4
-   through ``featmlp_agg``, the entry the render calls. K5 (scatter) at
+   through ``featmlp_agg``, the entry the render calls. K4's gathering
+   front (``featmlp_gather``, the exact render's aggregation in
+   ``featnet_plain``'s rounding) at the ``dnerf-render-test`` cell's chunk
+   (``GATHER_SLOTS`` slots, K = 8, F = 128, 4 layers), with and without a
+   64-wide pose embedding, against the gathers and ``featnet_plain`` on
+   the card: max and mean |dh| under K4's gates beside the control in K4's
+   own rounding, kth bit-equal, the weights under
+   ``GATHER_W_MAX_ABS_ERR``, a live prefix of ``GATHER_LIVE`` of the slots
+   equal to the full call and the rest cleared; graphed and queued ms and
+   the roofline share, over all slots and over the prefix. K5 (scatter) at
    the three stage-1 grid-gradient shapes: two runs bit-equal, and
    bit-equal to the plain version on a CPU copy of the inputs (the
    row-order sum is sequential in both), else under ``K5_MAX_ABS_ERR``,
@@ -92,7 +101,10 @@ and no result line is printed):
    loaded as a checkpoint (K1 runs at load) and a 400 x 400 view is
    rendered in 8192-ray chunks through ``render_view`` (the image
    function: a frame graph and a chunk graph, captured in it), in exact
-   and in shared k-NN mode. Each mode must launch K1-K4, give a finite
+   k-NN mode (K4), in exact mode with ``featmlp_kernel`` off (the
+   configurations' own formulation: K4's gathering front) and in shared
+   mode (K4). Each mode must launch K1-K3 and its feat_net kernel, give a
+   finite
    image with foreground, and agree with the same render through the
    plain versions on the foreground pixels (PSNR >= ``PSNR_MIN_DB``,
    printed beside a control render's). Then both ways (``graph_vs_eager``):
@@ -253,6 +265,11 @@ KERNELS = [  # name, source, TPU kernel it replaces (pl.pallas_call line)
      "apnerf/kernels/knn_cells_pallas.py:340"),
     ("featmlp", "apnerf_torch/csrc/featmlp.cu",
      "apnerf/kernels/featmlp_pallas.py:203"),
+    # K4's gathering front replaces no TPU kernel: the XLA formulation of
+    # the exact path's aggregation, which the JAX package renders with
+    ("featmlp_gather", "apnerf_torch/csrc/featmlp.cu",
+     "apnerf/train/stage2.py:99 (no pl.pallas_call: the XLA feat_net with "
+     "featmlp_kernel off)"),
     ("scatter", "apnerf_torch/csrc/scatter.cu",
      "apnerf/kernels/scatter_pallas.py:213"),
     ("agg", "apnerf_torch/csrc/agg.cu", "apnerf/kernels/agg_pallas.py:230"),
@@ -452,7 +469,8 @@ def nvidia_smi_line() -> str:
 
 def count_wgmma(so) -> str:
     """How many warpgroup matrix products (HGMMA in SASS) the built library
-    holds, by kernel family: K4's and K6's chain must be made of them."""
+    holds, by kernel family: K4's (both fronts, each under K4's mark
+    ``RowFront``) and K6's chain must be made of them."""
     tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
         "cuobjdump"
     if not tool.exists():
@@ -464,12 +482,14 @@ def count_wgmma(so) -> str:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = ("K4 (RowFront)" if "RowFront" in m.group(1) else
+            fn = ("K4 (GatherRowFront)" if "GatherRowFront" in m.group(1)
+                  else "K4 (RowFront)" if "RowFront" in m.group(1) else
                   "K6 (SubgroupFront)" if "SubgroupFront" in m.group(1)
                   else "other kernels")
         elif fn and "HGMMA" in line:
             counts[fn] = counts.get(fn, 0) + 1
-    if not (counts.get("K4 (RowFront)") and counts.get("K6 (SubgroupFront)")):
+    if not (counts.get("K4 (RowFront)") and counts.get("K4 (GatherRowFront)")
+            and counts.get("K6 (SubgroupFront)")):
         raise AssertionError(f"build: no wgmma in K4 / K6: {counts}")
     return "HGMMA (wgmma) instructions in the library's SASS: " + ", ".join(
         f"{k} {v}" for k, v in sorted(counts.items()))
@@ -614,12 +634,27 @@ def agg_fp32_layers(q_sub, nbr, rot, feat, wts, K, eps):
     return h.reshape(S, share, F), kd2
 
 
+def gather_k4_rounding(q, idx, tabs, eps, live=None, want_w=False):
+    """Control for K4's gathering front: its plain version in K4's own
+    rounding (the bias added in fp32 before the round, the pose term folded
+    into it) -- what switching K4 on in the exact render would give."""
+    from apnerf_torch.kernels import featmlp as fm
+    geo, feat, wts = tabs
+    n, K = idx.shape
+    rel, w, kth = fm.gather_rows_plain(q, idx, geo, eps)
+    fk = feat.index_select(0, idx.reshape(-1).long()).reshape(n, K, -1)
+    b1 = wts.b1 if wts.pose is None else wts.b1 + wts.pose
+    k4 = fm.FeatMLPWeights(wts.w1, b1, wts.wl, wts.bl, wts.n_pe, wts.P_pad,
+                           wts.image)
+    return fm.featmlp_plain(rel, fk, w, k4), kth, w if want_w else None
+
+
 @contextmanager
-def plain_kernels(featmlp=None, scatter=None, agg=None):
+def plain_kernels(featmlp=None, scatter=None, agg=None, gather=None):
     """Route every kernel wrapper to its plain PyTorch version (on the
     card) -- for the comparison runs of this script only. ``featmlp`` /
-    ``scatter`` / ``agg`` replace K4's / K5's / K6's plain version (the
-    controls)."""
+    ``scatter`` / ``agg`` / ``gather`` replace K4's / K5's / K6's / K4's
+    gathering front's plain version (the controls)."""
     from apnerf_torch.kernels import agg as ag, featmlp as fm, \
         knn_brute as kb, knn_cells as kc, procrustes as pk, \
         scatter as sc, trilerp as tl
@@ -640,6 +675,8 @@ def plain_kernels(featmlp=None, scatter=None, agg=None):
                                   q, t["pts_sorted"], k, r2)), \
             mock.patch.object(fm, "featmlp_cuda",
                               featmlp or fm.featmlp_plain), \
+            mock.patch.object(fm, "featmlp_gather_cuda",
+                              gather or fm.featmlp_gather_plain), \
             mock.patch.object(sc, "sorted_window_accumulate_cuda",
                               scatter or sc.sorted_window_accumulate_plain):
         yield
@@ -748,6 +785,8 @@ def phase_kernels(torch, pcd, report):
                      torch.Generator(device="cpu").manual_seed(5))
 
     layers = phase_featmlp(torch, report, g)
+    phase_gather(torch, report, p, tabs, queries,
+                 torch.Generator(device="cpu").manual_seed(11))
     phase_agg(torch, report, layers, g)
     phase_chain_shapes(torch, g)
     phase_scatter(torch, report)
@@ -1596,6 +1635,121 @@ def featmlp_within_gates(torch, h, over, mean, top) -> bool:
     K4_REL_MEAN_ERR of max |h|."""
     return (bool(torch.isfinite(h).all()) and over <= K4_REL_MAX_ERR * top
             and mean <= K4_MEAN_ABS_ERR and mean <= K4_REL_MEAN_ERR * top)
+
+
+# K4's gathering front at the chunk of the dnerf-render-test cell: 8,192
+# rays at budget 192 give a pass budget of 141,824 slots (K = 8, F = 128,
+# 4 layers), of which the cell's passing slots fill ~35% (its
+# budget_fill.render reads 34.7%): the kernel reads that count and skips the
+# rest. Held against the model's plain path on the card
+# (temporal_points.exact_front_plain and featnet_plain in bf16, cuBLAS's
+# GEMMs): kth bit-equal (the kernel sums d2 and the weights in the order of
+# PyTorch's CUDA reductions, read from torch 2.11.0+cu128: this gate is
+# the check to rerun after an upgrade of torch), the weights within
+# GATHER_W_MAX_ABS_ERR, a ceiling at ~4x the reading of 2.4e-7 (NVIDIA H100
+# 80GB HBM3, 700 W: a few float32 steps where the plain path's sum of a
+# row's weights is not taken in the kernel's order), h under K4's gates
+# (the same rounding in another fp32 order: a flipped bf16 round now and
+# then), beside the control in K4's own rounding (gather_k4_rounding).
+GATHER_SLOTS = 141824
+GATHER_LIVE = 0.35
+GATHER_W_MAX_ABS_ERR = 1e-6
+
+
+def phase_gather(torch, report, p, tabs, queries, g, F=128, K=8, n_pe=10,
+                 eps=1e-6):
+    """K4's gathering front at the render cell's chunk, with and without a
+    64-wide pose embedding, against the plain path on the card."""
+    from apnerf_torch.kernels import featmlp as fm, knn_cells as kc
+    from apnerf_torch.models import temporal_points as tp
+    dev = torch.device(DEVICE)
+    n = GATHER_SLOTS
+    q = queries(n, 0.03, g=g)
+    _, idx = kc.knn_radius(q, tabs, K, RADIUS)
+    Pp = tabs["pts_sorted"].shape[0]
+    rot = (torch.eye(3).reshape(1, 9)
+           + 0.3 * torch.randn(Pp, 9, generator=g)).to(dev)
+    geo = torch.cat([tabs["pts_sorted"], rot], -1).contiguous()
+    feat = (0.3 * torch.randn(Pp, F, generator=g)).to(dev)
+    n_live = int(GATHER_LIVE * n)
+    live = torch.arange(n, device=dev) < n_live
+    mlp_flop = 2 * ((3 * (1 + 2 * n_pe) + F) * F + 3 * F * F)
+    for pose_dim in (0, 64):
+        layers = random_layers(torch, g, F, n_pe, 4, pose_dim)
+        pose = (torch.randn(1, pose_dim, generator=g).to(dev) if pose_dim
+                else None)
+        tabs_g = fm.GatherTables(geo, feat.to(torch.bfloat16),
+                                 fm.pack_plain_weights(layers, F, n_pe, pose))
+
+        def kernel(lv=None):
+            return fm.featmlp_gather(q, idx, tabs_g, eps, live=lv,
+                                     want_w=True)
+        ms, (h, kth, w) = cuda_ms(kernel)
+
+        def plain():
+            rc, fk, to_nn, w = tp.exact_front_plain(
+                geo, feat, torch.bfloat16, q, idx.long(), eps)
+            return (tp.featnet_plain(layers, rc, fk, w, pose, n_pe,
+                                     torch.bfloat16),
+                    to_nn.amax(-1), w, (rc, fk))
+        pms, (ph, pkth, pw, (rc, fk)) = cuda_ms(plain)
+        d = (h - ph).abs()
+        err, mean, top = d.max().item(), d.mean().item(), ph.abs().max().item()
+        # the plain path's last-layer outputs, one neighbour a row
+        ones = torch.ones(n * K, 1, device=dev)
+        f_last = tp.featnet_plain(layers, rc.reshape(n * K, 1, 3),
+                                  fk.reshape(n * K, 1, F), ones, pose, n_pe,
+                                  torch.bfloat16).reshape(n, K, F)
+        over = beyond_last_round(torch, d, f_last, w)
+        dc = (gather_k4_rounding(q, idx, tabs_g, eps)[0] - ph).abs()
+        kth_equal = torch.equal(kth, pkth)
+        w_err = (w - pw).abs().max().item()
+        # the live prefix: the rows before it as the full call's, the rest
+        # cleared
+        hl, kl, wl = kernel(live)
+        prefix_ok = (torch.equal(hl[:n_live], h[:n_live])
+                     and torch.equal(kl[:n_live], kth[:n_live])
+                     and torch.equal(wl[:n_live], w[:n_live])
+                     and not bool(hl[n_live:].any())
+                     and not bool(wl[n_live:].any())
+                     and bool(torch.isinf(kl[n_live:]).all()))
+        shape = (f"n={n} K={K} F={F} depth 4"
+                 + (f" pose {pose_dim}" if pose_dim else ""))
+        print(f"kernel featmlp_gather {shape}: max |dh| {err:g} "
+              f"({err / top:.3g} of max |h| {top:.3g}; beyond one bf16 step "
+              f"of the last layer's outputs {over / top:.3g}, gate "
+              f"{K4_REL_MAX_ERR:.3g}), mean |dh| {mean:g} (gates "
+              f"{K4_MEAN_ABS_ERR:g}, {mean / top:.3g} of max |h| against "
+              f"{K4_REL_MEAN_ERR:g}); control in K4's rounding: max "
+              f"{dc.max().item():g}, mean {dc.mean().item():g}; kth "
+              f"bit-equal {kth_equal}; max |dw| {w_err:g} (gate "
+              f"{GATHER_W_MAX_ABS_ERR:g}); live prefix of {n_live} "
+              f"{'as the full call, the rest cleared' if prefix_ok else 'WRONG'}"
+              f"; against the gathers + featnet_plain", flush=True)
+        if not (featmlp_within_gates(torch, h, over, mean, top) and kth_equal
+                and w_err <= GATHER_W_MAX_ABS_ERR and prefix_ok):
+            raise AssertionError(f"featmlp_gather differs ({shape}): max "
+                                 f"{err:g} ({over:g} beyond the last round), "
+                                 f"mean {mean:g}, kth equal {kth_equal}, w "
+                                 f"{w_err:g}, live prefix {prefix_ok}")
+        moved = nbytes(q, idx, geo, tabs_g.feat, tabs_g.wts.w1, tabs_g.wts.wl,
+                       h, kth, w)
+        if pose_dim == 0:
+            report.add("featmlp_gather", shape, ms, pms, err, moved,
+                       n * K * mlp_flop, "bf16")
+        for label, lv, rows in (("all slots", None, n),
+                                (f"live prefix {n_live}", live, n_live)):
+            t_b = moved / HBM_BYTES_PER_S * 1e3
+            t_o = rows * K * mlp_flop / PEAK_FLOPS["bf16"] * 1e3
+            bound = max(t_b, t_o)
+            qd = queued_ms(lambda: kernel(lv))
+            gr = graphed_ms(lambda: kernel(lv))
+            print(f"kernel featmlp_gather {shape}, {label}: graphed {gr:.4f} "
+                  f"ms, queued {qd:.4f} ms, bound {bound:.4f} ms "
+                  f"({'operations' if t_o >= t_b else 'bytes'}): "
+                  f"{100 * bound / gr:.1f}% of its roofline graphed, "
+                  f"{100 * bound / qd:.1f}% queued; the plain path "
+                  f"{pms:.3f} ms ({nvidia_smi_line()})", flush=True)
 
 
 def queued_ms(fn, launches=20, rounds=5):
@@ -2491,13 +2645,20 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
     Kmat = [[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1]]
     c2w = np.eye(4, dtype=np.float32)
     c2w[2, 3] = 3.0
-    modes = {"exact": dict(knn_share=1),
-             "shared": dict(knn_share=16, knn_cand=8, coarse_stride=32,
-                            sample_budget=96, max_steps=512)}
+    # each mode's k-NN path and the kernel that runs its feat_net: K4, or,
+    # with featmlp_kernel off (featnet_plain's formulation), K4's gathering
+    # front
+    modes = {"exact": (dict(knn_share=1), "exact", "featmlp"),
+             "exact featnet_plain": (dict(knn_share=1, featmlp_kernel=False),
+                                     "exact", "featmlp_gather"),
+             "shared": (dict(knn_share=16, knn_cand=8, coarse_stride=32,
+                             sample_budget=96, max_steps=512), "shared",
+                        "featmlp")}
     images, launches = {}, {}
-    for mode, over in modes.items():
+    for mode, (over, knn_path, feat_kernel) in modes.items():
         model.cfg = bench_config(P, J, F, **over)
-        path = os.path.join(ckpt_dir, f"temporalpoints_{mode}.pkl")
+        path = os.path.join(ckpt_dir,
+                            f"temporalpoints_{mode.replace(' ', '_')}.pkl")
         save_temporalpoints(path, model, {
             "canonical_pcd": pcd, "skeleton_pcd": pcd[::40], "bones":
             np.asarray(bones), "xyz_min": pcd.min(0) - 0.1,
@@ -2514,10 +2675,11 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
         first_s = time.perf_counter() - t0
         # K1 at the load; the image function's warm-up and its replay
         launches[mode] = dict(kernels.LAUNCHES)
-        if out["knn_path"] != mode:
+        if out["knn_path"] != knn_path:
             raise AssertionError(f"{mode} render ran the {out['knn_path']} "
                                  "aggregation")
-        idle = [k for k in RENDER_KERNELS if launches[mode][k] == 0]
+        idle = [k for k in (*RENDER_KERNELS[:3], feat_kernel)
+                if launches[mode][k] == 0]
         if idle:
             raise AssertionError(f"{mode} render launched no {idle}")
         rgb = out["rgb"]
@@ -2549,7 +2711,7 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
                                 extra_keys=("acc",))
         with plain_kernels():
             ref = eager()
-        with plain_kernels(featmlp_fp32_layers):
+        with plain_kernels(featmlp_fp32_layers, gather=gather_k4_rounding):
             ctl = eager()
         # over the foreground only: the background is bg whatever K4 gives
         fg_mask = (out["acc"] > 1e-3).cpu().numpy() | (ref["acc"] > 1e-3)
@@ -2576,8 +2738,8 @@ def phase_render(torch, pcd, joints, bones, feat, ckpt_dir):
           f"{psnr(images['shared'], images['exact']):.2f} dB (bench.py gates "
           "its headline at 50 dB; information only, these weights are not "
           "the JAX bench's)", flush=True)
-    return {k: launches["exact"][k] + launches["shared"][k]
-            for k in RENDER_KERNELS}
+    return {k: sum(c[k] for c in launches.values())
+            for k in (*RENDER_KERNELS, "featmlp_gather")}
 
 
 def phase_procrustes_render(torch, pcd, joints, bones, feat, ckpt_dir):
